@@ -1,0 +1,7 @@
+"""Refiners of the port (``morefusion_tpu.contrib``)."""
+
+# flake8: noqa: F401
+
+from .collision_refine import IterativeCollisionCheck
+from .collision_refine import icc_loss
+from .collision_refine import refine_collision

@@ -1,0 +1,12 @@
+"""Differentiable geometry ops of the port (``morefusion_tpu.functions``)."""
+
+# flake8: noqa: F401
+
+from .tdf import pseudo_occupancy_voxelization
+from .tdf import truncated_distance_function
+from .transforms import compose_transform
+from .transforms import quaternion_matrix
+from .transforms import transform_points
+from .transforms import transformation_matrix
+from .voxelization import average_voxelization_3d
+from .voxelization import interpolate_voxel_grid

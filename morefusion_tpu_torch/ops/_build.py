@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels: plain ``nvcc`` + ``ctypes``.
+
+Every ``.cu`` under ``csrc/`` exposes an ``extern "C"`` launcher, so it is
+compiled into one shared library with a plain C interface and no PyTorch
+headers (seconds, where an extension that includes ``torch/extension.h``
+takes minutes). The library is built at first use into ``_build/`` beside
+the package and rebuilt when a source is newer than it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libmfk.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def build(ptxas_verbose: bool = False):
+    """Compile every source into ``LIB_PATH``.
+
+    Returns ``(seconds, nvcc's stderr)``; raises ``RuntimeError`` carrying
+    the compiler's output on failure.
+    """
+    BUILD_DIR.mkdir(exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS]
+    if ptxas_verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, LIB_PATH)
+    return time.perf_counter() - t0, proc.stderr
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
+
+
+def load():
+    """The kernel library (built first if missing or stale)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.mfk_min_dist.argtypes = [
+                ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
+                ptr,
+            ]
+            lib.mfk_min_dist.restype = i32
+            lib.mfk_error_string.argtypes = [i32]
+            lib.mfk_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.mfk_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
