@@ -4,19 +4,34 @@
     python3 chip_smoke.py               # on a machine with a CUDA card
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
-Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` with ``nvcc``,
-then runs four phases, each printing one JSON line:
+Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
+and ``knn.cu``) with ``nvcc``, then runs seven phases, each printing one
+JSON line:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
-   version at the ICC shapes and at edge cases;
+   version at the ICC shapes, at edge cases and at the train step's shape
+   (16 lanes x 3000 solid CAD points under a pose, 32^3 voxels, winners
+   identical);
 2. serving: ``PoseEstimationNode.estimate`` with the committed occupancy
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
    instances, against the same node on the CPU, then timed;
 3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations) on eight
    synthetic objects of 2048 points, against the same refine with the
    plain version, then timed; its kernel launches are counted;
-4. kernel timing at the ICC shapes, beside the plain version, one PyTorch
-   yardstick and the card's bound.
+4. min-distance kernel timing at the ICC and the train step's shapes,
+   beside the plain version, one PyTorch yardstick and the card's bound;
+5. knn kernel vs plain: the nearest-neighbour kernel against its plain
+   version at the training shape (16 lanes x 500,000 queries x 500 CAD
+   points) and at edge cases, indices identical;
+6. training: the full-width SingleView3D train step (occupancy branch and
+   loss, ADD-S, B = 16 crops of 256^2, 1000 points, 32^3 grids) from the
+   committed occupancy checkpoint: one step's loss and gradients with the
+   kernels against the plain versions in deterministic mode, one step on
+   the card against the CPU at B = 2, five timed steps with dropout on and
+   their kernel launches counted, and one eval step; the batch holds lanes
+   of a symmetric class, where ADD-S runs;
+7. knn kernel timing at the training shape, beside the plain version,
+   ``torch.cdist`` + ``argmin`` and the card's bound.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -31,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -45,12 +61,19 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per voxel-point pair
 
 ROOT_DIMS = (32, 32, 32)  # the ICC grid
+TRAIN_B, TRAIN_POSES, TRAIN_CAD = 16, 1000, 500  # the JAX train shape
 
 # tolerances (see each phase)
 D2_ATOL, D2_RTOL = 1e-3, 1e-5
 TIE_GAP = 1e-4
 POSE_ATOL, CONF_ATOL = 1e-3, 1e-4
 LOSS_ATOL = 1e-4
+# training: kernel vs plain in deterministic mode (only the bilinear
+# upsampling backward stays atomic); card vs CPU (other summation orders)
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_RTOL, STEP_GRAD_TOTAL = 1e-4, 1e-6
+CPU_LOSS_RTOL = 1e-4
+CPU_GRAD_RTOL, CPU_GRAD_TOTAL = 1e-3, 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -154,28 +177,58 @@ def compare_min_dist(out, ref, ip):
     return max_err, n_diff
 
 
-def phase_kernel_vs_plain(device, small):
+def train_min_dist_inputs(bank, batch, device):
+    """The min-distance kernel's inputs as the train step's occupancy loss
+    forms them (``functions/tdf.py``): each lane's solid CAD points from
+    the bank under the lane's true pose, in voxel units of its grid, their
+    mask, and their SDF quantized to 14 bits as the payload."""
+    from morefusion_tpu_torch import functions as F
+
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    cid = b["class_id"].long()
+    T = F.transformation_matrix(b["quaternion_true"], b["translation_true"])
+    moved = F.transform_points(bank.solid_points[cid], T)
+    ip = (moved - b["origin"][:, None]) / b["pitch"][:, None, None]
+    valid = bank.solid_mask[cid] & ~torch.isnan(ip).any(-1)
+    sdf = bank.solid_sdf[cid]
+    scale = sdf.amax(-1, keepdim=True).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    payload = torch.round(sdf / scale * 16383.0).clamp(0, 16383)
+    return (torch.nan_to_num(ip).contiguous(), valid.contiguous(),
+            payload.to(torch.int32).contiguous())
+
+
+def phase_kernel_vs_plain(device, small, train_inputs):
     from morefusion_tpu_torch.ops import min_dist as md
 
     B, P = (8, 2048) if not small else (2, 300)
     big = 16384 if not small else 600
     cases = [("icc", B, P), ("masked", B, P), ("nan", B, P),
              ("empty_lane", B, P), ("ragged", B, P - 48 if not small else 250),
-             ("p16384", 2, big)]
+             ("p16384", 2, big), ("train", None, None)]
     results = []
     max_err = 0.0
     for seed, (case, b, p) in enumerate(cases):
-        ip, valid, payload = min_dist_inputs(seed, b, p, case, device)
+        if case == "train":
+            ip, valid, payload = train_inputs
+            b, p = ip.shape[:2]
+        else:
+            ip, valid, payload = min_dist_inputs(seed, b, p, case, device)
         out = md.min_dist_voxels(ip, valid, payload, ROOT_DIMS)
         sync(device)
         ref = md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS)
         err, n_diff = compare_min_dist(out, ref, ip)
+        if case == "train":
+            # every voxel, far ones included, has the same winner and d2
+            check(n_diff == 0 and err == 0.0,
+                  f"min_dist train: {n_diff} winners differ, d2 off by {err}")
         max_err = max(max_err, err)
         results.append(dict(case=case, B=b, P=p, max_abs_err=err,
                             tie_flips=n_diff))
     emit(dict(phase="kernel_vs_plain", ok=True, cases=results,
               tolerance=dict(d2_atol=D2_ATOL, d2_rtol=D2_RTOL,
-                             winner_tie_gap=TIE_GAP)))
+                             winner_tie_gap=TIE_GAP,
+                             train="identical d2 and winners")))
     return max_err
 
 
@@ -429,30 +482,368 @@ def phase_icc(device, small, counts):
 # --------------------------------------------------------------- phase 4
 
 
-def phase_kernel_timing(device, small):
+def min_dist_timing(device, ip, valid, payload, reps):
+    """One shape's row: the bound and, on the card, the kernel's, the plain
+    version's and the yardstick's times."""
     from morefusion_tpu_torch.ops import min_dist as md
 
-    B, P = (8, 2048) if not small else (2, 300)
-    ip, valid, payload = min_dist_inputs(0, B, P, "icc", device)
+    B, P, _ = ip.shape
     bound_ms, bound_by = min_dist_bound(ip, valid, ROOT_DIMS)
-    row = dict(phase="kernel_timing", shape=dict(B=B, P=P, dims=ROOT_DIMS),
+    row = dict(shape=dict(B=B, P=P, dims=ROOT_DIMS), bound_ms=bound_ms,
+               bound_by=bound_by)
+    if device.type != "cuda":
+        row.update(kernel_ms=None, plain_ms=None, library_ms=None)
+        return row
+    centers = md.voxel_centers(ROOT_DIMS, device)[None].expand(B, -1, -1)
+    row.update(
+        kernel_ms=cuda_ms(
+            lambda: md.min_dist_voxels(ip, valid, payload, ROOT_DIMS), reps),
+        plain_ms=cuda_ms(
+            lambda: md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS),
+            5),
+        # yardstick only, never called by the port: two PyTorch calls,
+        # with no mask and no payload
+        library_ms=cuda_ms(lambda: torch.cdist(centers, ip).min(dim=2), 5),
+    )
+    return row
+
+
+def phase_kernel_timing(device, small, train_inputs):
+    """The min-distance kernel at the ICC shape and at the train step's."""
+    B, P = (8, 2048) if not small else (2, 300)
+    icc = min_dist_timing(
+        device, *min_dist_inputs(0, B, P, "icc", device), 100)
+    train = min_dist_timing(device, *train_inputs, 50)
+    row = dict(phase="kernel_timing", **icc, train=train,
+               library_call="torch.cdist(centers, points).min(dim=2) "
+                            "(two calls)")
+    if device.type != "cuda":
+        row["note"] = "times are taken on the card only"
+    emit(row)
+    return row
+
+
+# --------------------------------------------------------------- phase 5
+
+
+def knn_inputs(seed, B, R, Q, case, device):
+    """``ref (B, R, 3)`` and ``query (B, Q, 3)`` on ``device``. ``train``:
+    each lane's R CAD-like points at 0.8 m from the camera, the queries the
+    same points under Q / R predicted poses about 2 cm and 10 degrees off,
+    as ADD-S sees them in training."""
+    g = np.random.RandomState(seed)
+    ref = g.uniform(-0.1, 0.1, (B, R, 3)) + [0.0, 0.0, 0.8]
+    if case == "ties":
+        # integer points, each twice: exact ties that the lowest index wins
+        ref = g.randint(-4, 5, (B, R, 3)).astype(np.float64)
+        ref[:, R // 2:] = ref[:, : R - R // 2]
+    ref_t = torch.from_numpy(ref.astype(np.float32)).to(device)
+    if case == "train":
+        M = Q // R
+        rot = np.stack([[random_rotation_near(g, 0.1) for _ in range(M)]
+                        for _ in range(B)])  # (B, M, 3, 3)
+        shift = g.normal(0, 0.02, (B, M, 3))
+        rot_t = torch.from_numpy(rot.astype(np.float32)).to(device)
+        center = ref_t.mean(1, keepdim=True)[:, None]  # (B, 1, 1, 3)
+        query_t = (torch.einsum("bmij,bmnj->bmni", rot_t,
+                                ref_t[:, None] - center) + center
+                   + torch.from_numpy(shift.astype(np.float32)).to(
+                       device)[:, :, None]).reshape(B, Q, 3).contiguous()
+    else:
+        lo, hi = (-5, 6) if case == "ties" else (-0.12, 0.12)
+        query = g.uniform(lo, hi, (B, Q, 3)) + (
+            0.0 if case == "ties" else [0.0, 0.0, 0.8])
+        if case == "ties":
+            query = np.round(query)
+        query_t = torch.from_numpy(query.astype(np.float32)).to(device)
+    return ref_t, query_t
+
+
+def random_rotation_near(g, scale):
+    a = np.linalg.qr(np.eye(3) + g.normal(0, scale, (3, 3)))[0]
+    return a * np.sign(np.diag(a))[None]
+
+
+def knn_bound(ref, query):
+    """Least time (ms) on an H100 for one knn call on these inputs: every
+    query-reference pair at 8 fp32 flops, against reading the inputs and
+    writing the indices once."""
+    B, R, _ = ref.shape
+    Q = query.shape[1]
+    ops_s = FLOPS_PER_PAIR * B * Q * R / PEAK_FP32_FLOPS
+    bytes_s = (B * (Q + R) * 3 * 4 + B * Q * 4) / PEAK_BYTES_PER_S
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def chosen_d2(ref, query, idx):
+    """Squared distance of each query to the reference point ``idx`` picks."""
+    p = torch.gather(ref, 1, idx.long()[..., None].expand(-1, -1, 3))
+    return ((query - p) ** 2).sum(-1)
+
+
+def phase_knn_vs_plain(device, small):
+    from morefusion_tpu_torch.ops import knn
+
+    B, M, N = ((TRAIN_B, TRAIN_POSES, TRAIN_CAD) if not small
+               else (2, 20, 50))
+    cases = [("train", B, N, M * N), ("one_ref", 2, 1, 4096),
+             ("ties", 2, 64, 4096), ("ragged", 3, N, 50 * N + 17),
+             ("above_tpu_cap", 1, 20000 if not small else 700, 3000),
+             ("one_lane", 1, N, 10 * N)]
+    results = []
+    max_err = 0.0
+    for seed, (case, b, r, q) in enumerate(cases):
+        ref, query = knn_inputs(100 + seed, b, r, q, case, device)
+        got = knn.nn_indices(ref, query)
+        sync(device)
+        want = knn.nn_indices_plain(ref, query)
+        n_diff = int((got != want).sum())
+        err = float((chosen_d2(ref, query, got)
+                     - chosen_d2(ref, query, want)).abs().max())
+        check(n_diff == 0, f"knn {case}: {n_diff} indices differ "
+                           f"(chosen d2 up to {err} apart)")
+        if case == "ties":
+            check(bool((got < r - r // 2).all()),
+                  "knn ties: a tie did not go to the lowest index")
+        max_err = max(max_err, err)
+        results.append(dict(case=case, B=b, R=r, Q=q, index_mismatches=n_diff,
+                            max_abs_err=err))
+    emit(dict(phase="knn_vs_plain", ok=True, cases=results,
+              tolerance="identical indices"))
+    return max_err
+
+
+# --------------------------------------------------------------- phase 6
+
+
+def make_train_batch(B, S=256, V=32, seed=0):
+    """The JAX package's synthetic train batch (``make_batch`` of
+    ``examples/profile_train.py``, copied: this script imports nothing of
+    that package)."""
+    rng = np.random.RandomState(seed)
+    rgb = rng.randint(0, 255, (B, S, S, 3)).astype(np.float32)
+    pcd = rng.uniform(-0.2, 0.2, (B, S, S, 3)).astype(np.float32)
+    pcd[..., 2] += 0.8
+    hole = rng.rand(B, S, S) < 0.35
+    pcd[hole] = np.nan
+    q = rng.randn(B, 4).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return dict(
+        class_id=rng.randint(1, 22, B).astype(np.int32),
+        rgb=rgb,
+        pcd=pcd,
+        quaternion_true=q,
+        translation_true=np.float32(
+            rng.uniform(-0.1, 0.1, (B, 3)) + [0, 0, 0.8]
+        ),
+        origin=np.float32(rng.uniform(-0.2, 0.0, (B, 3)) + [0, 0, 0.7]),
+        pitch=np.full(B, 0.01, np.float32),
+        grid_target=(rng.rand(B, V, V, V) < 0.05).astype(np.float32),
+        grid_nontarget_empty=(rng.rand(B, V, V, V) < 0.3).astype(
+            np.float32
+        ),
+    )
+
+
+def loss_and_grads(model, loss_fn, batch, train, seed=0):
+    """One step's metrics and gradients, without the optimizer, and the
+    pose each lane's occupancy loss took (its highest confidence)."""
+    from morefusion_tpu_torch.training import trainer
+
+    device = next(model.parameters()).device
+    model.zero_grad(set_to_none=True)
+    sample_gen, dropout_gen = trainer.step_generators(seed, 0, device)
+    seen = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: seen.append(out[2].detach()))
+    try:
+        loss, metrics = loss_fn(batch, True, train=train,
+                                sample_generator=sample_gen,
+                                dropout_generator=dropout_gen)
+    finally:
+        hook.remove()
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    best = seen[0].argmax(dim=1).tolist()
+    return {k: float(v.detach()) for k, v in metrics.items()}, grads, best
+
+
+def compare_steps(got, want, loss_rtol, grad_rtol, grad_total, what):
+    """Metrics within ``loss_rtol``; each parameter's gradient within
+    ``grad_rtol`` of its own norm plus ``grad_total`` of the whole
+    gradient's norm. Returns the worst errors."""
+    (m1, g1, best1), (m2, g2, best2) = got, want
+    # the occupancy loss takes each lane's best-confidence pose: a near-tie
+    # that the two runs break differently compares two other poses
+    check(best1 == best2, f"{what}: best poses {best1} vs {best2}")
+    loss_err = max(abs(m1[k] - m2[k]) / max(abs(m2[k]), 1e-12) for k in m2)
+    check(loss_err <= loss_rtol, f"{what}: losses {m1} vs {m2}")
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in g2.values())))
+    worst_rel = worst_ratio = 0.0
+    for name, g in g2.items():
+        err = float((g1[name].to(g.device) - g).norm())
+        norm = float(g.norm())
+        bound = grad_rtol * norm + grad_total * total
+        worst_rel = max(worst_rel, err / max(norm, 1e-30))
+        worst_ratio = max(worst_ratio, err / bound)
+        check(err <= bound, f"{what}: gradient of {name} off by {err} "
+                            f"(norm {norm}, whole gradient {total})")
+    return dict(loss_rel_err=loss_err, grad_max_rel_err=worst_rel,
+                grad_max_err_over_tolerance=worst_ratio, best_poses=best1)
+
+
+def train_setup(device, small):
+    """The procedural CAD models, their bank on ``device`` (500 points and
+    up to 3000 solid points per class), the seconds the bank took to
+    build, and the train batch. ADD-S, and so the knn kernel, enters the
+    loss only in lanes of a symmetric class; the batch must hold one."""
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.training import trainer
+
+    B, S = (TRAIN_B, 256) if not small else (2, 64)
+    t0 = time.perf_counter()
+    models = ProceduralModels()
+    bank = trainer.CadPointBank.build(models, 21, device=device)
+    bank_s = time.perf_counter() - t0
+    batch = make_train_batch(B, S)
+    symmetric = bank.symmetric.cpu().numpy()
+    if not symmetric[batch["class_id"]].any():
+        # the rehearsal's two lanes draw none: give the last lane one
+        batch["class_id"][-1] = np.flatnonzero(symmetric)[0]
+    return models, bank, bank_s, batch
+
+
+def phase_train(device, small, counts, setup):
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.training import trainer
+
+    models, bank, bank_s, batch = setup
+    B, S = batch["rgb"].shape[:2]
+    symmetric_lanes = int(
+        bank.symmetric.cpu().numpy()[batch["class_id"]].sum())
+    check(symmetric_lanes >= 1, "train: no lane of a symmetric class")
+    model = serving_model(small, seed=5).to(device)
+
+    # (a) kernels against plain versions: same device, same generators, so
+    # the same samples and dropout masks; deterministic mode makes the
+    # scatter-adds sum in one order (the bilinear upsampling backward has
+    # no deterministic CUDA version and stays atomic: warn_only)
+    loss_fn = trainer.make_loss_fn(model, bank)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            kernel = loss_and_grads(model, loss_fn, batch, train=True)
+            with mock.patch.object(md, "min_dist_voxels",
+                                   md.min_dist_voxels_plain), \
+                    mock.patch.object(knn, "nn_indices",
+                                      knn.nn_indices_plain):
+                plain = loss_and_grads(model, loss_fn, batch, train=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    vs_plain = compare_steps(kernel, plain, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                             STEP_GRAD_TOTAL, "train kernel vs plain")
+    del kernel, plain
+
+    # (b) the card against the CPU at B = 2, dropout off, same samples
+    b2 = make_train_batch(2, S, seed=1)
+    mask = ~np.isnan(b2["pcd"]).any(-1).reshape(2, -1)
+    g = np.random.RandomState(6)
+    b2["sample_indices"] = np.stack([
+        g.choice(np.flatnonzero(m), model.n_point, replace=False)
+        for m in mask]).astype(np.int64)
+    on_card = loss_and_grads(model, loss_fn, b2, train=False)
+    cpu_model = serving_model(small, seed=5)
+    cpu_bank = trainer.CadPointBank.build(models, 21, device="cpu")
+    on_cpu = loss_and_grads(cpu_model,
+                            trainer.make_loss_fn(cpu_model, cpu_bank),
+                            b2, train=False)
+    vs_cpu = compare_steps(on_card, on_cpu, CPU_LOSS_RTOL, CPU_GRAD_RTOL,
+                           CPU_GRAD_TOTAL, "train card vs cpu")
+    del on_card, on_cpu, cpu_model, cpu_bank
+
+    # (c) the main path: five steps with dropout on, counted and timed
+    state = trainer.create_train_state(model)
+    step = trainer.make_train_step(model, bank)
+    n_steps = 5
+    for c in counts:
+        c.launches = 0
+    step_ms, losses = [], []
+    for _ in range(n_steps):
+        sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, True, seed=0)
+        loss = float(metrics["loss"])  # reads back: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        check(np.isfinite(loss), f"train: loss {loss} at step {state.step}")
+    launches = {c.__name__: c.launches for c in counts}
+    if device.type == "cuda":
+        for name in ("min_dist_voxels", "nn_indices"):
+            check(launches[name] >= n_steps,
+                  f"train: {launches[name]} {name} launches in {n_steps} "
+                  f"steps")
+
+    # (d) one eval step
+    out = trainer.make_eval_step(model, bank)(batch)
+    for k in ("add", "add_s", "add_or_add_s"):
+        check(out[k].shape == (B,) and bool(torch.isfinite(out[k]).all()),
+              f"eval: bad {k}")
+    check(bool((out["add_s"] <= out["add"] + 1e-6).all()),
+          "eval: ADD-S above ADD")
+    emit(dict(phase="train", ok=True, device=str(device), batch=B, crop=S,
+              n_point=model.n_point, voxel_dim=model.voxel_dim,
+              symmetric_lanes=symmetric_lanes, bank_build_s=bank_s, kernel_vs_plain=vs_plain,
+              card_vs_cpu=vs_cpu,
+              tolerance=dict(kernel_vs_plain=dict(
+                  loss_rtol=STEP_LOSS_RTOL, grad_rtol=STEP_GRAD_RTOL,
+                  grad_of_whole=STEP_GRAD_TOTAL),
+                  card_vs_cpu=dict(loss_rtol=CPU_LOSS_RTOL,
+                                   grad_rtol=CPU_GRAD_RTOL,
+                                   grad_of_whole=CPU_GRAD_TOTAL,
+                                   best_poses="equal")),
+              steps=n_steps, losses=losses,
+              step_ms=step_ms, median_step_ms=float(np.median(step_ms)),
+              launches=launches,
+              launches_per_step={k: v / n_steps for k, v in launches.items()},
+              eval_add=[float(x) for x in out["add_or_add_s"]]))
+    return launches
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def phase_knn_timing(device, small):
+    from morefusion_tpu_torch.ops import knn
+
+    B, M, N = ((TRAIN_B, TRAIN_POSES, TRAIN_CAD) if not small
+               else (2, 20, 50))
+    ref, query = knn_inputs(100, B, N, M * N, "train", device)
+    bound_ms, bound_by = knn_bound(ref, query)
+    row = dict(phase="knn_timing", shape=dict(B=B, Q=M * N, R=N),
                bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
         row.update(kernel_ms=None, plain_ms=None, library_ms=None,
                    note="times are taken on the card only")
         emit(row)
         return row
-    centers = md.voxel_centers(ROOT_DIMS, device)[None].expand(B, -1, -1)
+    chunk = 62500  # (16, 62500, 500) distances: 2 GB a call
+
+    def library():
+        for base in range(0, M * N, chunk):
+            torch.cdist(query[:, base:base + chunk], ref).argmin(dim=2)
+
     row.update(
-        kernel_ms=cuda_ms(
-            lambda: md.min_dist_voxels(ip, valid, payload, ROOT_DIMS), 100),
-        plain_ms=cuda_ms(
-            lambda: md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS),
-            5),
-        # yardstick only, never called by the port: two PyTorch calls,
-        # with no mask and no payload
-        library_ms=cuda_ms(lambda: torch.cdist(centers, ip).min(dim=2), 10),
-        library_call="torch.cdist(centers, points).min(dim=2) (two calls)",
+        kernel_ms=cuda_ms(lambda: knn.nn_indices(ref, query), 20),
+        plain_ms=cuda_ms(lambda: knn.nn_indices_plain(ref, query), 2, 1),
+        # yardstick only, never called by the port
+        library_ms=cuda_ms(library, 3, 1),
+        library_call=f"torch.cdist(query, ref).argmin(dim=2), "
+                     f"{-(-M * N // chunk)} chunks of {chunk} queries",
     )
     emit(row)
     return row
@@ -474,11 +865,12 @@ def main(argv=None):
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, ROOT)
     from morefusion_tpu_torch.ops import _build
+    from morefusion_tpu_torch.ops import knn
     from morefusion_tpu_torch.ops import min_dist as md
 
     device = torch.device(args.device)
     small = device.type == "cpu"
-    counts = [md.min_dist_voxels]
+    counts = [md.min_dist_voxels, knn.nn_indices]
     if small:
         torch.set_num_threads(min(8, os.cpu_count() or 1))
         print("cpu rehearsal: no card", flush=True)
@@ -492,26 +884,46 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    max_err = phase_kernel_vs_plain(device, small)
+    setup = train_setup(device, small)
+    train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
+    max_err = phase_kernel_vs_plain(device, small, train_inputs)
     phase_serving(device, small, counts)
-    launches = phase_icc(device, small, counts)
+    icc_launches = phase_icc(device, small, counts)
     if not small:
-        check(launches > 0, "icc: the min_dist kernel was never launched")
-    timing = phase_kernel_timing(device, small)
+        check(icc_launches > 0, "icc: the min_dist kernel was never launched")
+    timing = phase_kernel_timing(device, small, train_inputs)
+    del train_inputs
+    knn_err = phase_knn_vs_plain(device, small)
+    train_launches = phase_train(device, small, counts, setup)
+    knn_timing = phase_knn_timing(device, small)
 
-    kernel = dict(
+    kernels = [dict(
         name="min_dist", route="cuda",
         source="morefusion_tpu_torch/csrc/min_dist.cu",
         replaces="morefusion_tpu/ops/min_dist_pallas.py:60",
-        launches=launches, max_abs_err=max_err, ms=timing["kernel_ms"],
+        launches=icc_launches + train_launches["min_dist_voxels"],
+        launches_by_path=dict(icc_refine=icc_launches,
+                              train_5_steps=train_launches["min_dist_voxels"]),
+        max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
-    )
+        train_shape={k: timing["train"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    ), dict(
+        name="knn", route="cuda",
+        source="morefusion_tpu_torch/csrc/knn.cu",
+        replaces="morefusion_tpu/ops/knn_pallas.py:36",
+        launches=train_launches["nn_indices"],
+        launches_by_path=dict(train_5_steps=train_launches["nn_indices"]),
+        max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
+        plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
+        bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],
+    )]
     if small:
-        emit(dict(rehearsal_kernels=[kernel]))
+        emit(dict(rehearsal_kernels=kernels))
         emit(dict(ok=True, rehearsal="cpu"))
         return 0
-    emit(dict(kernels=[kernel]))
+    emit(dict(kernels=kernels))
     print(card_line(), flush=True)
     emit(dict(ok=True, device=dict(platform="gpu",
                                    kind=torch.cuda.get_device_name(0),

@@ -44,6 +44,13 @@ def compose_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def translation_matrix(translation: torch.Tensor) -> torch.Tensor:
+    """``(..., 3)`` translations -> ``(..., 4, 4)`` transforms, no rotation."""
+    eye = torch.eye(3, dtype=translation.dtype, device=translation.device)
+    return compose_transform(eye.expand(*translation.shape[:-1], 3, 3),
+                             translation)
+
+
 def transformation_matrix(quaternion, translation) -> torch.Tensor:
     """``(quaternion, translation)`` -> ``(..., 4, 4)`` transforms."""
     T = quaternion_matrix(quaternion)

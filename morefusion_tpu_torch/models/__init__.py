@@ -2,6 +2,7 @@
 
 # flake8: noqa: F401
 
+from . import losses
 from .convert_jax import load_jax_npz
 from .convert_jax import params_from_jax
 from .heads import PoseHeads

@@ -77,7 +77,9 @@ class DilatedResNet18(nn.Module):
         self.ResBlock_3 = ResBlock(blocks[3], w * 4, w * 8, 1, 4)
 
     def forward(self, rgb):
-        h = normalize_rgb(rgb).permute(0, 3, 1, 2)
+        # contiguous NCHW: a permuted (channels-last) input sends the CPU
+        # backward through a oneDNN path that crashes with 3+ threads
+        h = normalize_rgb(rgb).permute(0, 3, 1, 2).contiguous()
         h = self.Conv_0(h)
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         h = self.ResBlock_0(h)

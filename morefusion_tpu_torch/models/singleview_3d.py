@@ -118,6 +118,8 @@ class SingleView3D(nn.Module):
         grid_nontarget_empty: Optional[torch.Tensor] = None,
         sample_indices: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        train: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
         """Per-point poses.
 
@@ -126,13 +128,17 @@ class SingleView3D(nn.Module):
         ``origin (B, 3)`` (from the masked median when None);
         ``grid_nontarget_empty (B, V, V, V)`` (occupancy variant);
         ``sample_indices (B, n_point)`` flat pixel indices, drawn with
-        ``generator`` when None. Returns quaternions ``(B, P, 4)``,
-        camera-frame translations ``(B, P, 3)`` and confidences ``(B, P)``.
+        ``generator`` when None; ``train`` turns on the PSPNet dropout, whose
+        masks come from ``dropout_generator``. Returns quaternions
+        ``(B, P, 4)``, camera-frame translations ``(B, P, 3)`` and
+        confidences ``(B, P)``.
         """
         B, H, W, _ = rgb.shape
         V = self.voxel_dim
         mask = ~torch.isnan(pcd).any(dim=-1)
-        h_rgb = self.pspnet_extractor(self.resnet_extractor(rgb))  # (B,32,H,W)
+        h_rgb = self.pspnet_extractor(
+            self.resnet_extractor(rgb), train=train,
+            generator=dropout_generator)  # (B, 32, H, W)
         if sample_indices is None:
             sample_indices = sample_mask_indices(mask, self.n_point, generator)
         sample_indices = sample_indices.to(torch.int64)

@@ -95,6 +95,8 @@ def load():
                 ptr,
             ]
             lib.mfk_min_dist.restype = i32
+            lib.mfk_knn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+            lib.mfk_knn.restype = i32
             lib.mfk_error_string.argtypes = [i32]
             lib.mfk_error_string.restype = ctypes.c_char_p
             _LIB = lib

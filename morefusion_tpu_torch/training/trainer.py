@@ -1,0 +1,252 @@
+"""The SingleView3D train and eval steps of the port.
+
+Port of ``morefusion_tpu/training/trainer.py`` (``CadPointBank``,
+``make_train_step``, ``make_eval_step``, ``create_train_state``,
+``stack_examples``) on one device:
+
+- Adam at 1e-4 (``torch.optim.Adam``; betas 0.9 / 0.999 and eps 1e-8 are
+  optax's defaults too);
+- the ``add -> add/add_s`` schedule is the ``use_symmetric`` argument of
+  the step, ANDed with the per-class symmetry table;
+- the CAD point banks live on the device as ``(n_class + 1, N, 3)`` tables
+  indexed by the one-based class id (row 0, the background, is zeros);
+- each step draws its sampling and dropout masks from two generators
+  derived from ``(seed, step)``, where the JAX step folds the step into its
+  key and splits it.
+
+Fixed where the JAX functions take arguments: 500 CAD points per class
+from seed 0, the confidence weight 0.015, the occupancy term at scale 1
+whenever the model has the occupancy branch. The JAX step's ``augment``,
+``transfer_schema`` and ``axis_name`` options and its data-parallel steps
+are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numpy as np
+import torch
+
+from ..datasets.ycb_video.class_names import symmetric_flags
+from ..models import losses as losses_module
+
+EVAL_SEED = 1234  # the JAX eval step's fixed sampling key
+N_CAD_POINTS = 500  # CAD points per class in the bank
+BANK_SEED = 0  # the host RNG that draws the bank's points
+LEARNING_RATE = 1e-4
+
+
+@dataclasses.dataclass
+class CadPointBank:
+    """Device-resident per-class CAD point tables.
+
+    points: (n_class+1, n_points, 3) — row 0 (background) is zeros.
+    solid_points/sdf/mask: (n_class+1, max_solid_points, ...) padded solid
+    voxel points of each class for the occupancy loss.
+    symmetric: (n_class+1,) bool.
+    """
+
+    points: torch.Tensor
+    symmetric: torch.Tensor
+    solid_points: torch.Tensor
+    solid_sdf: torch.Tensor
+    solid_mask: torch.Tensor
+
+    @classmethod
+    def build(
+        cls,
+        models,
+        n_fg_class: int,
+        max_solid_points: int = 3000,
+        device="cuda",
+    ) -> "CadPointBank":
+        """The tables of ``models`` (a ``ModelsBase``), with the solid
+        points, drawn on the host with ``np.random.RandomState(BANK_SEED)``
+        as the JAX package draws them, then moved to ``device``. The tests
+        keep fewer solid points per class than the 3000 of training."""
+        rng = np.random.RandomState(BANK_SEED)
+        pts = np.zeros((n_fg_class + 1, N_CAD_POINTS, 3), np.float32)
+        for cid in range(1, n_fg_class + 1):
+            pcd = models.get_pcd(cid)
+            keep = rng.permutation(len(pcd))[:N_CAD_POINTS]
+            if len(keep) < N_CAD_POINTS:
+                keep = np.r_[
+                    keep, rng.randint(0, len(pcd), N_CAD_POINTS - len(keep))
+                ]
+            pts[cid] = pcd[keep]
+
+        sym = np.zeros(n_fg_class + 1, bool)
+        sym[1:] = symmetric_flags(n_fg_class)
+
+        solid_pts = np.zeros((n_fg_class + 1, max_solid_points, 3), np.float32)
+        solid_sdf = np.zeros((n_fg_class + 1, max_solid_points), np.float32)
+        solid_mask = np.zeros((n_fg_class + 1, max_solid_points), bool)
+        for cid in range(1, n_fg_class + 1):
+            grid = models.get_solid_voxel_grid(cid)
+            p = grid.points
+            d = grid.inside_distance
+            if len(p) > max_solid_points:
+                keep = rng.permutation(len(p))[:max_solid_points]
+                p, d = p[keep], d[keep]
+            solid_pts[cid, : len(p)] = p
+            solid_sdf[cid, : len(p)] = d
+            solid_mask[cid, : len(p)] = True
+
+        def put(a):
+            return torch.from_numpy(a).to(device)
+
+        return cls(points=put(pts), symmetric=put(sym),
+                   solid_points=put(solid_pts), solid_sdf=put(solid_sdf),
+                   solid_mask=put(solid_mask))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), its optimizer and the step count."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_train_state(model) -> TrainState:
+    optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def step_generators(seed: int, step: int, device):
+    """The (sampling, dropout) generators of one step, on ``device``, derived
+    from ``(seed, step)`` alone."""
+    states = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
+    return tuple(torch.Generator(device=device).manual_seed(int(s))
+                 for s in states)
+
+
+def _device_of(model):
+    return next(model.parameters()).device
+
+
+def _to_device(batch, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _model_inputs(model, batch):
+    kwargs = dict(class_id=batch["class_id"], rgb=batch["rgb"],
+                  pcd=batch["pcd"], pitch=batch["pitch"],
+                  sample_indices=batch.get("sample_indices"))
+    if model.with_occupancy:
+        kwargs["origin"] = batch.get("origin")
+        kwargs["grid_nontarget_empty"] = batch["grid_nontarget_empty"]
+    return kwargs
+
+
+def make_loss_fn(model, bank: CadPointBank):
+    """The train step's loss: ``loss_fn(batch, use_symmetric, *, train=True,
+    sample_generator=None, dropout_generator=None) -> (loss, metrics)``.
+
+    Batch contract (fixed shapes; arrays or tensors, moved to the model's
+    device here): class_id (B,) int; rgb (B, H, W, 3) f32; pcd (B, H, W, 3)
+    f32 (NaN holes); quaternion_true (B, 4); translation_true (B, 3); pitch
+    (B,); origin (B, 3) [occupancy]; grid_target, grid_nontarget_empty
+    (B, V, V, V) f32 [occupancy]; optionally sample_indices (B, n_point),
+    which the model then uses in place of drawing its own.
+
+    A model with the occupancy branch (``model.with_occupancy``) gets the
+    occupancy grids, and the occupancy reward / penalty joins the loss.
+    """
+
+    def loss_fn(batch, use_symmetric, *, train: bool = True,
+                sample_generator=None, dropout_generator=None):
+        batch = _to_device(batch, _device_of(model))
+        quat, trans, conf = model(
+            **_model_inputs(model, batch), generator=sample_generator,
+            train=train, dropout_generator=dropout_generator)
+        cid = batch["class_id"].long()
+        loss = losses_module.pose_loss(
+            quaternion_pred=quat,
+            translation_pred=trans,
+            confidence_pred=conf,
+            quaternion_true=batch["quaternion_true"],
+            translation_true=batch["translation_true"],
+            cad_points=bank.points[cid],
+            symmetric=bank.symmetric[cid] & use_symmetric,
+        )
+        metrics = {"loss_add": loss}
+        if model.with_occupancy:
+            occ = losses_module.occupancy_loss(
+                quaternion_pred=quat,
+                translation_pred=trans,
+                confidence_pred=conf,
+                solid_points=bank.solid_points[cid],
+                solid_sdf=bank.solid_sdf[cid],
+                solid_mask=bank.solid_mask[cid],
+                pitch=batch["pitch"],
+                origin=batch["origin"],
+                grid_target=batch["grid_target"],
+                grid_nontarget_empty=batch["grid_nontarget_empty"],
+            )
+            loss = loss + occ
+            metrics["loss_occupancy"] = occ
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(model, bank: CadPointBank):
+    """``train_step(state, batch, use_symmetric, seed=0) -> (state,
+    metrics)``: one Adam step on the loss of ``make_loss_fn(model, bank)``
+    with dropout on. ``state`` is updated in place and returned;
+    ``metrics`` are detached scalars on the device.
+    """
+    loss_fn = make_loss_fn(model, bank)
+
+    def train_step(state: TrainState, batch, use_symmetric, seed: int = 0):
+        device = _device_of(state.model)
+        sample_gen, dropout_gen = step_generators(seed, state.step, device)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, use_symmetric,
+                                sample_generator=sample_gen,
+                                dropout_generator=dropout_gen)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_eval_step(model, bank: CadPointBank):
+    """``eval_step(batch) -> {add, add_s, add_or_add_s, class_id}``, each
+    ``(B,)``: the best-confidence pose of a forward without dropout, its
+    points sampled from a generator seeded with the JAX eval step's fixed
+    seed."""
+
+    def eval_step(batch):
+        device = _device_of(model)
+        batch = _to_device(batch, device)
+        generator = torch.Generator(device=device).manual_seed(EVAL_SEED)
+        with torch.no_grad():
+            quat, trans, conf = model(**_model_inputs(model, batch),
+                                      generator=generator)
+            cid = batch["class_id"].long()
+            out = losses_module.evaluate_add(
+                quaternion_pred=quat,
+                translation_pred=trans,
+                confidence_pred=conf,
+                quaternion_true=batch["quaternion_true"],
+                translation_true=batch["translation_true"],
+                cad_points=bank.points[cid],
+                symmetric=bank.symmetric[cid],
+            )
+        out["class_id"] = batch["class_id"]
+        return out
+
+    return eval_step
+
+
+def stack_examples(examples):
+    """Host-side batch collation: list of dicts -> dict of stacked arrays."""
+    return {k: np.stack([np.asarray(e[k]) for e in examples])
+            for k in examples[0]}
