@@ -9,20 +9,26 @@ and ``knn.cu``) with ``nvcc``, then runs seven phases, each printing one
 JSON line:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
-   version at the ICC shapes, at edge cases and at the train step's shape
-   (16 lanes x 3000 solid CAD points under a pose, 32^3 voxels, winners
-   identical);
+   version at the ICC shapes, at edge cases (masked, NaN and overflowing
+   points, an empty lane, all lanes empty, ragged P, a prime P, a grid its
+   voxel tile does not divide, exact ties across its point splits) and at
+   the train step's shape (16 lanes x 3000 solid CAD points under a pose,
+   32^3 voxels): d2 bits, winners and payloads identical in every case;
 2. serving: ``PoseEstimationNode.estimate`` with the committed occupancy
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
    instances, against the same node on the CPU, then timed;
 3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations) on eight
    synthetic objects of 2048 points, against the same refine with the
-   plain version, then timed; its kernel launches are counted;
+   plain version in deterministic mode (losses and poses identical), then
+   timed; its kernel launches are counted;
 4. min-distance kernel timing at the ICC and the train step's shapes,
-   beside the plain version, one PyTorch yardstick and the card's bound;
+   beside the plain version, one PyTorch yardstick, the card's bound and
+   the wrapper's host time a call;
 5. knn kernel vs plain: the nearest-neighbour kernel against its plain
    version at the training shape (16 lanes x 500,000 queries x 500 CAD
-   points) and at edge cases, indices identical;
+   points) and at edge cases (one reference, exact ties, ties across the
+   kernel's reference tiles, a query count that fills no whole block,
+   R = 20,000, one lane), indices identical;
 6. training: the full-width SingleView3D train step (occupancy branch and
    loss, ADD-S, B = 16 crops of 256^2, 1000 points, 32^3 grids) from the
    committed occupancy checkpoint: one step's loss and gradients with the
@@ -58,16 +64,15 @@ CHECKPOINT = os.path.join(ROOT, "docs", "results", "occ_best_bf16.npz")
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-FLOPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per voxel-point pair
+# instruction issue of the CUDA cores: 132 SMs x 128 lanes x 1.98 GHz boost
+ISSUE_SLOTS_PER_S = 132 * 128 * 1.98e9
+KNN_FLOPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per query-reference pair
 
 ROOT_DIMS = (32, 32, 32)  # the ICC grid
 TRAIN_B, TRAIN_POSES, TRAIN_CAD = 16, 1000, 500  # the JAX train shape
 
 # tolerances (see each phase)
-D2_ATOL, D2_RTOL = 1e-3, 1e-5
-TIE_GAP = 1e-4
 POSE_ATOL, CONF_ATOL = 1e-3, 1e-4
-LOSS_ATOL = 1e-4
 # training: kernel vs plain in deterministic mode (only the bilinear
 # upsampling backward stays atomic); card vs CPU (other summation orders)
 STEP_LOSS_RTOL = 1e-5
@@ -118,6 +123,22 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps, warmup=2):
+    """Mean host time of one call of ``fn``: its wrapper's work and its
+    launches, not the card's work (``reps`` calls stay well inside the
+    launch queue, so the host never waits for the card). Where this reaches
+    ``cuda_ms``, the host bounds the calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 # --------------------------------------------------------------- phase 1
 
 
@@ -129,18 +150,43 @@ def min_dist_inputs(seed, B, P, case, device):
         ip[:, g.choice(P, P // 5, replace=False), g.randint(3)] = np.nan
     if case == "empty_lane":
         valid[1] = False
+    if case == "all_masked":
+        valid[:] = False
+    if case == "split_ties":
+        # integer points, the first half repeated as the second: exact ties
+        # between points P // 2 apart, in different splits of the kernel
+        ip = np.round(ip)
+        ip[:, P // 2:] = ip[:, : P - P // 2]
+        valid[:, P // 2:] = valid[:, : P - P // 2]
+    if case == "overflow":
+        # valid points whose d2 overflows to inf: lane 0 holds only such
+        # points (no winner anywhere), lane 1 one among finite ones
+        ip[0] = g.choice([-3e38, 3e38], (P, 3))
+        ip[1, 0] = 3e38
+        valid[:2] = True
     payload = g.randint(0, 1 << 14, (B, P)).astype(np.int32)
     return tuple(torch.from_numpy(a).to(device) for a in (ip, valid, payload))
+
+
+def min_dist_pairs(ip, valid, dims):
+    """Voxel-point pairs of one call: every voxel against every valid,
+    non-NaN point."""
+    return int(np.prod(dims)) * int((valid & ~torch.isnan(ip).any(-1)).sum())
 
 
 def min_dist_bound(ip, valid, dims):
     """Least time (ms) on an H100 for one call on these inputs, and what
     bounds it: the larger of the fp32 operations over the fp32 peak and
-    the bytes moved once over the memory rate."""
+    the bytes moved once over the memory rate. The operations are those of
+    the separable sum: for each valid point, a subtraction and a square per
+    distinct i, j and k, one add per (i, j), and one add and one min per
+    voxel."""
     B, P, _ = ip.shape
-    V = int(np.prod(dims))
+    X, Y, Z = dims
+    V = X * Y * Z
     n_valid = int((valid & ~torch.isnan(ip).any(-1)).sum())
-    ops_s = FLOPS_PER_PAIR * V * n_valid / PEAK_FP32_FLOPS
+    ops = n_valid * (2 * V + 2 * (X + Y + Z) + X * Y)
+    ops_s = ops / PEAK_FP32_FLOPS
     bytes_moved = B * P * (3 * 4 + 1 + 4) + B * V * (4 + 4 + 4)
     bytes_s = bytes_moved / PEAK_BYTES_PER_S
     if ops_s >= bytes_s:
@@ -148,32 +194,23 @@ def min_dist_bound(ip, valid, dims):
     return bytes_s * 1e3, "bytes"
 
 
-def compare_min_dist(out, ref, ip):
-    """Kernel output ``out`` against the plain version's ``ref``."""
+def compare_min_dist(out, ref, what):
+    """Kernel output ``out`` against the plain version's ``ref``: the same
+    d2 bits, winners and payloads in every voxel. Returns the largest d2
+    difference (0.0) and the number of voxels that differ (0)."""
     d2, arg, pay = out
     rd2, rarg, rpay = ref
-    check(torch.equal(torch.isinf(d2), torch.isinf(rd2)),
-          "min_dist: empty voxels differ")
-    fin = torch.isfinite(rd2)
+    diff = ((d2.view(torch.int32) != rd2.view(torch.int32))
+            | (arg != rarg) | (pay != rpay))
+    n_diff = int(diff.sum())
+    fin = torch.isfinite(rd2) & torch.isfinite(d2)
     err = (d2[fin] - rd2[fin]).abs()
     max_err = float(err.max()) if err.numel() else 0.0
-    check(bool((err <= D2_ATOL + D2_RTOL * rd2[fin].abs()).all()),
-          f"min_dist: d2 off by {max_err}")
-    check(bool((arg[~fin] == -1).all()), "min_dist: winner where none")
-    # a different winner is only allowed at a tie: its own d2 must be
-    # within TIE_GAP of the best
-    diff = (arg != rarg) & fin
-    n_diff = int(diff.sum())
-    if n_diff:
-        b, v = diff.nonzero(as_tuple=True)
-        _, Y, Z = ROOT_DIMS
-        c = torch.stack([v // (Y * Z), (v // Z) % Y, v % Z], -1).to(ip.dtype)
-        p = ip[b, arg[b, v].long()]
-        d2_winner = ((c - p) ** 2).sum(-1)
-        check(bool(((d2_winner - rd2[b, v]).abs() <= TIE_GAP).all()),
-              "min_dist: winners differ away from a tie")
-    same = arg == rarg
-    check(torch.equal(pay[same], rpay[same]), "min_dist: payloads differ")
+    check(n_diff == 0, f"min_dist {what}: {n_diff} voxels differ "
+                       f"(d2 up to {max_err} apart)")
+    check(torch.equal(torch.isinf(rd2), rarg == -1)
+          and bool((rpay[rarg == -1] == 0).all()),
+          f"min_dist {what}: the plain version broke its contract")
     return max_err, n_diff
 
 
@@ -203,32 +240,39 @@ def phase_kernel_vs_plain(device, small, train_inputs):
 
     B, P = (8, 2048) if not small else (2, 300)
     big = 16384 if not small else 600
-    cases = [("icc", B, P), ("masked", B, P), ("nan", B, P),
-             ("empty_lane", B, P), ("ragged", B, P - 48 if not small else 250),
-             ("p16384", 2, big), ("train", None, None)]
+    odd = (30, 17, 33) if not small else (9, 5, 11)  # no voxel tile divides it
+    cases = [("icc", B, P, ROOT_DIMS), ("masked", B, P, ROOT_DIMS),
+             ("nan", B, P, ROOT_DIMS), ("empty_lane", B, P, ROOT_DIMS),
+             ("ragged", B, P - 48 if not small else 250, ROOT_DIMS),
+             ("p16384", 2, big, ROOT_DIMS), ("ragged_grid", B, P, odd),
+             ("prime_p", 3, 1999 if not small else 131, ROOT_DIMS),
+             ("split_ties", 4, 4096 if not small else 400, ROOT_DIMS),
+             ("overflow", 3, 700 if not small else 70, ROOT_DIMS),
+             ("all_masked", 2, P, ROOT_DIMS), ("one_point", 2, 1, odd),
+             ("train", None, None, ROOT_DIMS)]
     results = []
     max_err = 0.0
-    for seed, (case, b, p) in enumerate(cases):
+    for seed, (case, b, p, dims) in enumerate(cases):
         if case == "train":
             ip, valid, payload = train_inputs
             b, p = ip.shape[:2]
         else:
             ip, valid, payload = min_dist_inputs(seed, b, p, case, device)
-        out = md.min_dist_voxels(ip, valid, payload, ROOT_DIMS)
+        out = md.min_dist_voxels(ip, valid, payload, dims)
         sync(device)
-        ref = md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS)
-        err, n_diff = compare_min_dist(out, ref, ip)
-        if case == "train":
-            # every voxel, far ones included, has the same winner and d2
-            check(n_diff == 0 and err == 0.0,
-                  f"min_dist train: {n_diff} winners differ, d2 off by {err}")
+        ref = md.min_dist_voxels_plain(ip, valid, payload, dims)
+        err, n_diff = compare_min_dist(out, ref, case)
+        if case == "split_ties":
+            check(bool((ref[1] < p - p // 2).all()),
+                  "min_dist split_ties: a tie did not go to the lowest index")
+        if case == "overflow":
+            check(bool((ref[1][0] == -1).all()),
+                  "min_dist overflow: an overflowing point won")
         max_err = max(max_err, err)
-        results.append(dict(case=case, B=b, P=p, max_abs_err=err,
-                            tie_flips=n_diff))
+        results.append(dict(case=case, B=b, P=p, dims=list(dims),
+                            max_abs_err=err, voxels_differing=n_diff))
     emit(dict(phase="kernel_vs_plain", ok=True, cases=results,
-              tolerance=dict(d2_atol=D2_ATOL, d2_rtol=D2_RTOL,
-                             winner_tie_gap=TIE_GAP,
-                             train="identical d2 and winners")))
+              tolerance="identical d2 bits, winners and payloads"))
     return max_err
 
 
@@ -435,9 +479,13 @@ def phase_icc(device, small, counts):
             T_p, loss_p, n_p = refine()
     finally:
         torch.use_deterministic_algorithms(False)
+    # the kernel's outputs equal the plain version's bit for bit, so the
+    # two refines are the same computation
     loss_err = float(np.abs(loss_k - loss_p).max())
+    pose_err = float(np.abs(T_k - T_p).max())
     check(n_k == n_p, f"icc: n_iter {n_k} (kernel) vs {n_p} (plain)")
-    check(loss_err <= LOSS_ATOL, f"icc: loss curves off by {loss_err}")
+    check(loss_err == 0.0 and pose_err == 0.0,
+          f"icc: loss curves {loss_err} and poses {pose_err} apart")
 
     # the main path, counted
     for c in counts:
@@ -473,7 +521,8 @@ def phase_icc(device, small, counts):
     emit(dict(phase="icc", ok=True, device=str(device), objects=N,
               points=M, voxel_dim=V, iterations=iterations, n_iter=n_iter,
               first_loss=float(losses[0]), best_loss=float(min(losses)),
-              kernel_vs_plain_loss_err=loss_err, tolerance=LOSS_ATOL,
+              kernel_vs_plain_loss_err=loss_err,
+              kernel_vs_plain_pose_err=pose_err, tolerance="identical",
               launches=launches, construct_ms=construct_ms,
               refine_ms=sec * 1e3, refines_per_s=1.0 / sec))
     return launches["min_dist_voxels"]
@@ -484,20 +533,28 @@ def phase_icc(device, small, counts):
 
 def min_dist_timing(device, ip, valid, payload, reps):
     """One shape's row: the bound and, on the card, the kernel's, the plain
-    version's and the yardstick's times."""
+    version's and the yardstick's times, and the wrapper's host time."""
     from morefusion_tpu_torch.ops import min_dist as md
 
     B, P, _ = ip.shape
     bound_ms, bound_by = min_dist_bound(ip, valid, ROOT_DIMS)
-    row = dict(shape=dict(B=B, P=P, dims=ROOT_DIMS), bound_ms=bound_ms,
-               bound_by=bound_by)
+    pairs = min_dist_pairs(ip, valid, ROOT_DIMS)
+    row = dict(shape=dict(B=B, P=P, dims=ROOT_DIMS), pairs=pairs,
+               bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
-        row.update(kernel_ms=None, plain_ms=None, library_ms=None)
+        row.update(kernel_ms=None, plain_ms=None, library_ms=None,
+                   slots_per_pair=None, host_ms=None)
         return row
     centers = md.voxel_centers(ROOT_DIMS, device)[None].expand(B, -1, -1)
+
+    def kernel():
+        return md.min_dist_voxels(ip, valid, payload, ROOT_DIMS)
+
+    kernel_ms = cuda_ms(kernel, reps)
     row.update(
-        kernel_ms=cuda_ms(
-            lambda: md.min_dist_voxels(ip, valid, payload, ROOT_DIMS), reps),
+        kernel_ms=kernel_ms,
+        host_ms=host_ms(kernel, reps),
+        slots_per_pair=kernel_ms * 1e-3 * ISSUE_SLOTS_PER_S / pairs,
         plain_ms=cuda_ms(
             lambda: md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS),
             5),
@@ -533,8 +590,9 @@ def knn_inputs(seed, B, R, Q, case, device):
     as ADD-S sees them in training."""
     g = np.random.RandomState(seed)
     ref = g.uniform(-0.1, 0.1, (B, R, 3)) + [0.0, 0.0, 0.8]
-    if case == "ties":
-        # integer points, each twice: exact ties that the lowest index wins
+    if case.startswith("ties"):
+        # integer points, each twice (R // 2 apart): exact ties that the
+        # lowest index wins
         ref = g.randint(-4, 5, (B, R, 3)).astype(np.float64)
         ref[:, R // 2:] = ref[:, : R - R // 2]
     ref_t = torch.from_numpy(ref.astype(np.float32)).to(device)
@@ -550,10 +608,10 @@ def knn_inputs(seed, B, R, Q, case, device):
                    + torch.from_numpy(shift.astype(np.float32)).to(
                        device)[:, :, None]).reshape(B, Q, 3).contiguous()
     else:
-        lo, hi = (-5, 6) if case == "ties" else (-0.12, 0.12)
-        query = g.uniform(lo, hi, (B, Q, 3)) + (
-            0.0 if case == "ties" else [0.0, 0.0, 0.8])
-        if case == "ties":
+        ties = case.startswith("ties")
+        lo, hi = (-5, 6) if ties else (-0.12, 0.12)
+        query = g.uniform(lo, hi, (B, Q, 3)) + (0.0 if ties else [0.0, 0.0, 0.8])
+        if ties:
             query = np.round(query)
         query_t = torch.from_numpy(query.astype(np.float32)).to(device)
     return ref_t, query_t
@@ -570,7 +628,7 @@ def knn_bound(ref, query):
     writing the indices once."""
     B, R, _ = ref.shape
     Q = query.shape[1]
-    ops_s = FLOPS_PER_PAIR * B * Q * R / PEAK_FP32_FLOPS
+    ops_s = KNN_FLOPS_PER_PAIR * B * Q * R / PEAK_FP32_FLOPS
     bytes_s = (B * (Q + R) * 3 * 4 + B * Q * 4) / PEAK_BYTES_PER_S
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations"
@@ -588,10 +646,13 @@ def phase_knn_vs_plain(device, small):
 
     B, M, N = ((TRAIN_B, TRAIN_POSES, TRAIN_CAD) if not small
                else (2, 20, 50))
+    # the kernel takes kThreads x kQ = 1024 queries a block and kTile = 2048
+    # references a shared-memory tile, in sub-tiles of kSub (csrc/knn.cu)
     cases = [("train", B, N, M * N), ("one_ref", 2, 1, 4096),
              ("ties", 2, 64, 4096), ("ragged", 3, N, 50 * N + 17),
              ("above_tpu_cap", 1, 20000 if not small else 700, 3000),
-             ("one_lane", 1, N, 10 * N)]
+             ("one_lane", 1, N, 10 * N), ("ragged_block", 2, 37, 3 * 1024 + 1),
+             ("ties_across_tiles", 2, 5000 if not small else 300, 2000)]
     results = []
     max_err = 0.0
     for seed, (case, b, r, q) in enumerate(cases):
@@ -604,7 +665,7 @@ def phase_knn_vs_plain(device, small):
                      - chosen_d2(ref, query, want)).abs().max())
         check(n_diff == 0, f"knn {case}: {n_diff} indices differ "
                            f"(chosen d2 up to {err} apart)")
-        if case == "ties":
+        if case.startswith("ties"):
             check(bool((got < r - r // 2).all()),
                   "knn ties: a tie did not go to the lowest index")
         max_err = max(max_err, err)
@@ -824,10 +885,12 @@ def phase_knn_timing(device, small):
                else (2, 20, 50))
     ref, query = knn_inputs(100, B, N, M * N, "train", device)
     bound_ms, bound_by = knn_bound(ref, query)
+    pairs = B * M * N * N
     row = dict(phase="knn_timing", shape=dict(B=B, Q=M * N, R=N),
-               bound_ms=bound_ms, bound_by=bound_by)
+               pairs=pairs, bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
         row.update(kernel_ms=None, plain_ms=None, library_ms=None,
+                   slots_per_pair=None,
                    note="times are taken on the card only")
         emit(row)
         return row
@@ -837,8 +900,10 @@ def phase_knn_timing(device, small):
         for base in range(0, M * N, chunk):
             torch.cdist(query[:, base:base + chunk], ref).argmin(dim=2)
 
+    kernel_ms = cuda_ms(lambda: knn.nn_indices(ref, query), 20)
     row.update(
-        kernel_ms=cuda_ms(lambda: knn.nn_indices(ref, query), 20),
+        kernel_ms=kernel_ms,
+        slots_per_pair=kernel_ms * 1e-3 * ISSUE_SLOTS_PER_S / pairs,
         plain_ms=cuda_ms(lambda: knn.nn_indices_plain(ref, query), 2, 1),
         # yardstick only, never called by the port
         library_ms=cuda_ms(library, 3, 1),
@@ -907,8 +972,11 @@ def main(argv=None):
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
+        slots_per_pair=timing["slots_per_pair"],
+        host_ms=timing["host_ms"],
         train_shape={k: timing["train"][k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "slots_per_pair", "host_ms")},
     ), dict(
         name="knn", route="cuda",
         source="morefusion_tpu_torch/csrc/knn.cu",
@@ -918,6 +986,7 @@ def main(argv=None):
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],
+        slots_per_pair=knn_timing["slots_per_pair"],
     )]
     if small:
         emit(dict(rehearsal_kernels=kernels))

@@ -90,9 +90,11 @@ def load():
                 build()
             lib = ctypes.CDLL(str(LIB_PATH))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.mfk_min_dist_splits.argtypes = [i32] * 6
+            lib.mfk_min_dist_splits.restype = i32
             lib.mfk_min_dist.argtypes = [
-                ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
-                ptr,
+                ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                ptr, i32, ptr,
             ]
             lib.mfk_min_dist.restype = i32
             lib.mfk_knn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr]

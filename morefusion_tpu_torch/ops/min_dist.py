@@ -19,9 +19,14 @@ Contract, for points in voxel units ``ip (B, P, 3)``, ``valid (B, P)``,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
+
+# the kernel splits the point axis in at most 65535 parts of at most 2048
+_MAX_POINTS = 65535 * 2048
 
 
 def _check_args(ip, valid, payload, dims):
@@ -40,6 +45,16 @@ def _check_args(ip, valid, payload, dims):
     devices = {ip.device, valid.device, payload.device}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: {devices}")
+
+
+@functools.lru_cache(maxsize=64)
+def _splits(B, P, X, Y, Z, device):
+    """Splits of the point axis the kernel takes at these shapes on this
+    card: one key (d2 bits << 32 | index) per split and voxel."""
+    splits = _build.load().mfk_min_dist_splits(B, P, X, Y, Z, device)
+    if splits < 1:
+        raise RuntimeError(f"min_dist: cannot query CUDA device {device}")
+    return splits
 
 
 def voxel_centers(dims, device, dtype=torch.float32):
@@ -99,16 +114,22 @@ def min_dist_voxels(ip, valid, payload, dims):
     V = X * Y * Z
     if B > 65535:
         raise ValueError(f"at most 65535 lanes, got {B}")
+    if V >= 2**31 or P > _MAX_POINTS:
+        raise ValueError(f"at most 2**31 - 1 voxels and {_MAX_POINTS} points "
+                         f"a lane, got {V} and {P}")
     d2 = torch.empty((B, V), dtype=torch.float32, device=ip.device)
     arg = torch.empty((B, V), dtype=torch.int32, device=ip.device)
     pay = torch.empty((B, V), dtype=torch.int32, device=ip.device)
     lib = _build.load()
+    device = ip.device.index
+    splits = _splits(B, P, X, Y, Z, device)
+    keys = torch.empty((splits, B, V), dtype=torch.int64, device=ip.device)
     stream = torch.cuda.current_stream(ip.device).cuda_stream
     err = lib.mfk_min_dist(
         ip.data_ptr(), valid.data_ptr(), payload.data_ptr(),
-        B, P, X, Y, Z,
+        B, P, X, Y, Z, splits, keys.data_ptr(),
         d2.data_ptr(), arg.data_ptr(), pay.data_ptr(),
-        ip.device.index, stream,
+        device, stream,
     )
     _build.check(lib, err, "min_dist launch")
     min_dist_voxels.launches += 1

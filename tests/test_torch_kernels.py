@@ -9,6 +9,12 @@ Tolerances: d2 within 1e-4 voxel^2, because JAX forms d2 as
 ulps) and the port as a direct sum of squares. Winners must be equal
 wherever the best and second-best d2 (float64 oracle) differ by more than
 1e-3; payloads wherever winners are equal.
+
+The edge cases of the kernel's design (a grid its voxel tile does not
+divide, P no multiple of its splits, exact ties across splits, d2 that
+overflows, all points masked) hold the plain version to a numpy evaluation
+of the contract, and on the card the kernel to the plain version, both
+bit for bit.
 """
 
 import numpy as np
@@ -141,25 +147,110 @@ def test_wrapper_rejects_bad_arguments(bad):
         md.min_dist_voxels(ip, valid, payload, dims)
 
 
+def _edge_inputs(case):
+    """``(ip, valid, payload, dims)`` for one edge case of the kernel."""
+    g = np.random.RandomState(len(case))
+    B, P, dims = 3, 300, (8, 7, 6)
+    if case == "ragged_grid":
+        dims = (9, 5, 11)  # the kernel's 2 x 4 x 4 voxel tile divides none
+    if case == "prime_p":
+        P = 701
+    if case == "split_ties":
+        P = 700
+    if case == "one_point":
+        B, P, dims = 2, 1, (9, 5, 11)
+    ip = g.uniform(-2, max(dims) + 2, (B, P, 3)).astype(np.float32)
+    valid = g.rand(B, P) > 0.1
+    if case == "split_ties":
+        # integer points, the first half repeated as the second: exact ties
+        # between points P // 2 apart, in different splits of the kernel
+        ip = np.round(ip)
+        ip[:, P // 2:] = ip[:, :P // 2]
+        valid[:, P // 2:] = valid[:, :P // 2]
+    if case == "overflow":
+        # valid points whose d2 overflows to inf: lane 0 holds only such
+        # points, lane 1 one of them among finite ones
+        ip[0] = g.choice([-3e38, 3e38], (P, 3))
+        ip[1, 0] = 3e38
+        valid[:2] = True
+    if case == "all_masked":
+        valid[:] = False
+    payload = g.randint(0, 1 << 14, (B, P)).astype(np.int32)
+    return ip, valid, payload, dims
+
+
+def _numpy_contract(ip, valid, payload, dims):
+    """The contract in numpy float32: d2 = (dx*dx + dy*dy) + dz*dz, each
+    operation rounded; the lowest index among the valid, non-NaN points of
+    least finite d2; -1, inf and payload 0 where there is none."""
+    c = md.voxel_centers(dims, "cpu").numpy()  # (V, 3) float32
+    d = c[None, :, None, :] - ip[:, None, :, :]  # (B, V, P, 3)
+    with np.errstate(over="ignore", invalid="ignore"):
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+    ok = valid & ~np.isnan(ip).any(-1)
+    d2 = np.where(ok[:, None, :] & np.isfinite(d2), d2, np.float32(np.inf))
+    best = d2.min(-1)
+    arg = np.where(np.isfinite(best), d2.argmin(-1), -1).astype(np.int32)
+    pay = np.where(arg >= 0,
+                   np.take_along_axis(payload, np.maximum(arg, 0), 1), 0)
+    return best.astype(np.float32), arg, pay.astype(np.int32)
+
+
+EDGE_CASES = ["ragged_grid", "prime_p", "split_ties", "overflow",
+              "all_masked", "one_point"]
+
+
+def _assert_bitwise(out, ref):
+    d2, arg, pay = (np.asarray(t) for t in out)
+    rd2, rarg, rpay = (np.asarray(t) for t in ref)
+    np.testing.assert_array_equal(d2.view(np.int32), rd2.view(np.int32))
+    np.testing.assert_array_equal(arg, rarg)
+    np.testing.assert_array_equal(pay, rpay)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_matches_numpy_contract_on_edge_cases(case):
+    ip, valid, payload, dims = _edge_inputs(case)
+    out = md.min_dist_voxels_plain(torch.from_numpy(ip),
+                                   torch.from_numpy(valid),
+                                   torch.from_numpy(payload), dims)
+    want = _numpy_contract(ip, valid, payload, dims)
+    _assert_bitwise([t.numpy() for t in out], want)
+    if case == "split_ties":
+        assert want[1].max() < ip.shape[1] // 2
+    if case == "overflow":
+        assert (want[1][0] == -1).all() and (want[1][1] != 0).all()
+
+
+def _card_inputs(case):
+    """``(ip, valid, payload, dims)`` for the card test: ``P`` points on the
+    ICC grid with NaN and masked points and an empty lane, or an edge case."""
+    if case in EDGE_CASES:
+        return _edge_inputs(case)
+    P = int(case)
+    g = np.random.RandomState(P)
+    B, dims = 4, (32, 32, 32)
+    ip = (g.rand(B, P, 3) * 36 - 2).astype(np.float32)
+    ip[0, :100, 1] = np.nan
+    valid = g.rand(B, P) > 0.2
+    valid[-1] = False
+    payload = g.randint(0, 1 << 14, (B, P)).astype(np.int32)
+    return ip, valid, payload, dims
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [2048, 2000, 16384])
-def test_kernel_matches_plain_on_the_card(P):
+@pytest.mark.parametrize("case", ["2048", "2000", "16384", *EDGE_CASES])
+def test_kernel_matches_plain_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    g = torch.Generator().manual_seed(P)
-    B, dims = 4, (32, 32, 32)
-    ip = torch.rand(B, P, 3, generator=g) * 36 - 2
-    ip[0, :100, 1] = float("nan")
-    valid = torch.rand(B, P, generator=g) > 0.2
-    valid[-1] = False
-    payload = torch.randint(0, 1 << 14, (B, P), generator=g,
-                            dtype=torch.int32)
-    args = [t.cuda() for t in (ip, valid, payload)]
+    ip, valid, payload, dims = _card_inputs(case)
+    args = [torch.from_numpy(a).cuda() for a in (ip, valid, payload)]
     before = md.min_dist_voxels.launches
     out = md.min_dist_voxels(*args, dims)
     torch.cuda.synchronize()
     assert md.min_dist_voxels.launches == before + 1
     ref = md.min_dist_voxels_plain(*args, dims)
     # identical arithmetic (no FMA contraction): bit-equal results
-    for x, y in zip(out, ref):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    _assert_bitwise([t.cpu().numpy() for t in out],
+                    [t.cpu().numpy() for t in ref])

@@ -14,7 +14,10 @@ that: there the port's point must be the nearer one in float64 (up to
 float32 rounding of its own sum) and the two squared distances must agree
 within 2^-20 (|q|^2 + |r|^2), the expansion's error bound. The plain version
 is held to the same arithmetic in numpy exactly, and on the card the kernel
-to the plain version exactly.
+to the plain version exactly. The edge cases of the kernel's design (a query
+count that fills no whole block, exact ties across its shared-memory tiles,
+NaN and overflowing distances) hold the plain version to a numpy evaluation
+of the contract, and on the card the kernel to the plain version.
 """
 
 import jax.numpy as jnp
@@ -135,19 +138,68 @@ def test_bad_inputs_raise(bad):
         ops_knn.nn_indices(ref, query)
 
 
+def _edge_inputs(case):
+    """``(ref, query)`` for one edge case of the kernel, which takes 1024
+    queries a block and 2048 references a shared-memory tile."""
+    g = np.random.RandomState(len(case))
+    if case == "ragged_block":
+        return _inputs(8, 2, 37, 3 * 1024 + 1, "random")
+    if case == "ties_across_tiles":
+        # every reference twice, 2500 apart: ties across tiles and sub-tiles
+        return _inputs(9, 2, 5000, 200, "ties")
+    ref, query = _inputs(10, 2, 40, 300, "random")
+    if case == "nan":
+        ref[0, g.choice(40, 10, replace=False), g.randint(3)] = np.nan
+        query[1, :50, 0] = np.nan
+        query[1, 50:60] = np.inf
+    if case == "overflow":
+        # d2 overflows to inf: lane 0's queries are that far from every
+        # reference, lane 1 has one reference that far
+        query[0, :, 2] = 3e38
+        ref[1, 5] = -3e38
+    return ref, query
+
+
+def _numpy_contract_nn(ref, query):
+    """The contract in numpy float32: argmin of ``(dx*dx + dy*dy) + dz*dz``
+    with NaN as inf, the first index on a tie, 0 where nothing is finite."""
+    d = query[:, :, None, :] - ref[:, None, :, :]
+    with np.errstate(over="ignore", invalid="ignore"):
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+    d2 = np.where(np.isnan(d2), np.float32(np.inf), d2)
+    return np.argmin(d2, axis=-1).astype(np.int32)
+
+
+KNN_EDGE_CASES = ["ragged_block", "ties_across_tiles", "nan", "overflow"]
+
+
+@pytest.mark.parametrize("case", KNN_EDGE_CASES)
+def test_plain_matches_numpy_contract_on_edge_cases(case):
+    ref, query = _edge_inputs(case)
+    got = ops_knn.nn_indices_plain(torch.from_numpy(ref),
+                                   torch.from_numpy(query)).numpy()
+    np.testing.assert_array_equal(got, _numpy_contract_nn(ref, query))
+    if case == "ties_across_tiles":
+        assert (got < ref.shape[1] // 2).all()
+    if case == "overflow":
+        assert (got[0] == 0).all() and (got[1] != 5).all()
+
+
+# the card test's cases besides the edge cases: (B, R, Q) of _inputs
+CARD_SHAPES = {"one_ref": (2, 1, 1000), "ties": (2, 64, 4096),
+               "ragged": (3, 500, 1000 * 50 + 17),
+               "above_tpu_cap": (1, 20000, 3000), "one_lane": (1, 500, 5000)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case,B,R,Q", [
-    ("one_ref", 2, 1, 1000),
-    ("ties", 2, 64, 4096),
-    ("ragged", 3, 500, 1000 * 50 + 17),
-    ("above_tpu_cap", 1, 20000, 3000),
-    ("one_lane", 1, 500, 5000),
-])
-def test_kernel_matches_plain_on_the_card(case, B, R, Q):
+@pytest.mark.parametrize("case", [*CARD_SHAPES, *KNN_EDGE_CASES])
+def test_kernel_matches_plain_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    ref, query = (torch.from_numpy(a).cuda()
-                  for a in _inputs(7, B, R, Q, case))
+    inputs = (_inputs(7, *CARD_SHAPES[case], case) if case in CARD_SHAPES
+              else _edge_inputs(case))
+    ref, query = (torch.from_numpy(a).cuda() for a in inputs)
     before = ops_knn.nn_indices.launches
     got = ops_knn.nn_indices(ref, query)
     torch.cuda.synchronize()
