@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc``, then runs seven phases, each printing one
+and ``knn.cu``) with ``nvcc``, then runs eight phases, each printing one
 JSON line:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
@@ -16,7 +16,11 @@ JSON line:
    32^3 voxels): d2 bits, winners and payloads identical in every case;
 2. serving: ``PoseEstimationNode.estimate`` with the committed occupancy
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
-   instances, against the same node on the CPU, then timed;
+   instances, against the same node on the CPU, then timed; then the node
+   with ICP (``with_icp=True``, procedural CAD points) on the same frame,
+   its knn launches counted (one per ICP iteration) and its frames timed
+   (the frame's ellipsoids are no CAD shapes: this checks the wiring, not
+   accuracy);
 3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations) on eight
    synthetic objects of 2048 points, against the same refine with the
    plain version in deterministic mode (losses and poses identical), then
@@ -28,7 +32,9 @@ JSON line:
    version at the training shape (16 lanes x 500,000 queries x 500 CAD
    points) and at edge cases (one reference, exact ties, ties across the
    kernel's reference tiles, a query count that fills no whole block,
-   R = 20,000, one lane), indices identical;
+   R = 20,000, one lane, NaN and overflowing distances with none finite),
+   indices and the winner's d2 bits identical, with and without the d2
+   output;
 6. training: the full-width SingleView3D train step (occupancy branch and
    loss, ADD-S, B = 16 crops of 256^2, 1000 points, 32^3 grids) from the
    committed occupancy checkpoint: one step's loss and gradients with the
@@ -37,7 +43,17 @@ JSON line:
    their kernel launches counted, and one eval step; the batch holds lanes
    of a symmetric class, where ADD-S runs;
 7. knn kernel timing at the training shape, beside the plain version,
-   ``torch.cdist`` + ``argmin`` and the card's bound.
+   ``torch.cdist`` + ``argmin`` and the card's bound, and at the ICP shape
+   (phase 8's first object, with the d2 output) with the wrapper's host
+   time;
+8. ICP: four procedural objects (4000 CAD points each) seen as the
+   camera-facing half of their points under a known pose plus 1 mm of
+   noise, each started 6 degrees and 8 mm off: ``ICPRegistration.register``
+   (100 iterations at most, voxel 0.01 m) on the card against the same on
+   the CPU (poses within ``ICP_POSE_ATOL``, equal iterations), its knn
+   launches counted (one per iteration), timed per register by the host
+   clock, ADD and ADD-S before and after; then ICC followed by ICP on the
+   same objects, and the ADD(-S) AUC of the raw, +icp and +icc+icp poses.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -79,6 +95,12 @@ STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL, STEP_GRAD_TOTAL = 1e-4, 1e-6
 CPU_LOSS_RTOL = 1e-4
 CPU_GRAD_RTOL, CPU_GRAD_TOTAL = 1e-3, 1e-5
+# ICP, card against CPU: the same correspondences (the knn kernel equals its
+# plain version bit for bit), Kabsch's sums in other orders; the CPU tests
+# hold the port to the JAX package within 1e-5
+ICP_POSE_ATOL = 1e-4
+# sugar box, mustard bottle, mug, foam brick (symmetric: scored by ADD-S)
+ICP_CLASSES = (3, 5, 14, 21)
 
 
 class CheckFailed(RuntimeError):
@@ -321,6 +343,7 @@ def serving_model(small, seed):
 
 
 def phase_serving(device, small, counts):
+    from morefusion_tpu_torch.datasets import ProceduralModels
     from morefusion_tpu_torch.geometry import masks_to_bboxes
     from morefusion_tpu_torch.runtime import PoseEstimationNode
     from morefusion_tpu_torch.runtime.pose_estimation import (
@@ -388,11 +411,41 @@ def phase_serving(device, small, counts):
         node.estimate(*args)
     sync(device)
     ms = (time.perf_counter() - t0) / reps * 1e3
+
+    # the node with ICP: one frame counted, then frames timed
+    icp_node = PoseEstimationNode(model, voxel_pitch, image_size=S,
+                                  device=device, with_icp=True,
+                                  cad_points=ProceduralModels().get_pcd)
+    for c in counts:
+        c.launches = 0
+    refined = icp_node.estimate(*args, sample_indices=sample_indices)
+    icp_launches = {c.__name__: c.launches for c in counts}
+    icp_iterations = dict(icp_node.last_icp_iterations)
+    check(sorted(refined) == sorted(ids)
+          and all(np.isfinite(refined[i]["T_cad2cam"]).all() for i in ids),
+          "serving with ICP: bad poses")
+    check(sorted(icp_iterations) == sorted(ids),
+          f"serving with ICP: refined {sorted(icp_iterations)}")
+    if device.type == "cuda":
+        check(icp_launches["nn_indices"] == sum(icp_iterations.values()),
+              f"serving with ICP: {icp_launches['nn_indices']} knn launches "
+              f"for {sum(icp_iterations.values())} ICP iterations")
+    icp_reps = 5 if not small else 1
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(icp_reps):
+        icp_node.estimate(*args)
+    sync(device)
+    icp_ms = (time.perf_counter() - t0) / icp_reps * 1e3
     emit(dict(phase="serving", ok=True, device=str(device),
               frame=[H, W], instances=len(ids), crop=S, n_point=n_point,
               max_pose_err=pose_err, max_conf_err=conf_err,
               tolerance=dict(pose=POSE_ATOL, conf=CONF_ATOL),
-              launches=launches, estimate_ms=ms, frames=reps))
+              launches=launches, estimate_ms=ms, frames=reps,
+              with_icp=dict(icp_iterations=icp_iterations,
+                            launches=icp_launches, estimate_ms=icp_ms,
+                            frames=icp_reps)))
+    return icp_launches["nn_indices"]
 
 
 # --------------------------------------------------------------- phase 3
@@ -407,6 +460,15 @@ def random_rotation(g):
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ])
+
+
+def occupancy_grid(points, origin, pitch, V):
+    """``(V, V, V)`` uint8 grid, 255 where a point falls."""
+    idx = np.round((points - origin) / pitch).astype(int)
+    idx = idx[((idx >= 0) & (idx < V)).all(1)]
+    grid = np.zeros((V, V, V), np.uint8)
+    grid[idx[:, 0], idx[:, 1], idx[:, 2]] = 255
+    return grid
 
 
 def make_icc_scene(seed, N, M, V):
@@ -441,18 +503,12 @@ def make_icc_scene(seed, N, M, V):
     origin = np.stack([T[:3, 3] - pc * (V / 2.0 - 0.5)
                        for T, pc in zip(poses, pitch)]).astype(np.float32)
     world = [p @ T[:3, :3].T + T[:3, 3] for p, T in zip(points, poses)]
-
-    def occupancy(pts, i):
-        idx = np.round((pts - origin[i]) / pitch[i]).astype(int)
-        idx = idx[((idx >= 0) & (idx < V)).all(1)]
-        grid = np.zeros((V, V, V), np.uint8)
-        grid[idx[:, 0], idx[:, 1], idx[:, 2]] = 255
-        return grid
-
-    target = np.stack([occupancy(world[i], i) for i in range(N)])
+    target = np.stack([occupancy_grid(world[i], origin[i], pitch[i], V)
+                       for i in range(N)])
     nontarget = np.stack([
-        occupancy(np.concatenate([w for j, w in enumerate(world) if j != i]),
-                  i) for i in range(N)])
+        occupancy_grid(
+            np.concatenate([w for j, w in enumerate(world) if j != i]),
+            origin[i], pitch[i], V) for i in range(N)])
     return (init, points, sdf, pitch, origin, target, nontarget)
 
 
@@ -596,6 +652,11 @@ def knn_inputs(seed, B, R, Q, case, device):
         ref = g.randint(-4, 5, (B, R, 3)).astype(np.float64)
         ref[:, R // 2:] = ref[:, : R - R // 2]
     ref_t = torch.from_numpy(ref.astype(np.float32)).to(device)
+    if case == "nan_overflow":
+        # lane 0: reference 0 gives NaN, every other one overflows, so no
+        # distance is finite (index 0, d2 +inf)
+        ref_t[0, 0, 0] = float("nan")
+        ref_t[0, 1:, 2] = 3e38
     if case == "train":
         M = Q // R
         rot = np.stack([[random_rotation_near(g, 0.1) for _ in range(M)]
@@ -622,14 +683,15 @@ def random_rotation_near(g, scale):
     return a * np.sign(np.diag(a))[None]
 
 
-def knn_bound(ref, query):
+def knn_bound(ref, query, with_d2=False):
     """Least time (ms) on an H100 for one knn call on these inputs: every
     query-reference pair at 8 fp32 flops, against reading the inputs and
-    writing the indices once."""
+    writing the indices (and the winners' d2) once."""
     B, R, _ = ref.shape
     Q = query.shape[1]
     ops_s = KNN_FLOPS_PER_PAIR * B * Q * R / PEAK_FP32_FLOPS
-    bytes_s = (B * (Q + R) * 3 * 4 + B * Q * 4) / PEAK_BYTES_PER_S
+    out_bytes = B * Q * (8 if with_d2 else 4)
+    bytes_s = (B * (Q + R) * 3 * 4 + out_bytes) / PEAK_BYTES_PER_S
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations"
     return bytes_s * 1e3, "bytes"
@@ -639,6 +701,12 @@ def chosen_d2(ref, query, idx):
     """Squared distance of each query to the reference point ``idx`` picks."""
     p = torch.gather(ref, 1, idx.long()[..., None].expand(-1, -1, 3))
     return ((query - p) ** 2).sum(-1)
+
+
+def finite_max_abs(a, b):
+    diff = (a - b).abs()
+    diff = diff[torch.isfinite(diff)]
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def phase_knn_vs_plain(device, small):
@@ -652,27 +720,37 @@ def phase_knn_vs_plain(device, small):
              ("ties", 2, 64, 4096), ("ragged", 3, N, 50 * N + 17),
              ("above_tpu_cap", 1, 20000 if not small else 700, 3000),
              ("one_lane", 1, N, 10 * N), ("ragged_block", 2, 37, 3 * 1024 + 1),
-             ("ties_across_tiles", 2, 5000 if not small else 300, 2000)]
+             ("ties_across_tiles", 2, 5000 if not small else 300, 2000),
+             ("nan_overflow", 2, 40, 1000)]
     results = []
     max_err = 0.0
     for seed, (case, b, r, q) in enumerate(cases):
         ref, query = knn_inputs(100 + seed, b, r, q, case, device)
-        got = knn.nn_indices(ref, query)
+        got = knn.nn_indices(ref, query)  # ADD-S's call: no d2 written
+        got_d2, d2 = knn.nn_indices(ref, query, return_d2=True)  # ICP's
         sync(device)
-        want = knn.nn_indices_plain(ref, query)
-        n_diff = int((got != want).sum())
-        err = float((chosen_d2(ref, query, got)
-                     - chosen_d2(ref, query, want)).abs().max())
+        want, want_d2 = knn.nn_indices_plain(ref, query, return_d2=True)
+        n_diff = int((got != want).sum()) + int((got_d2 != want).sum())
+        d2_diff = int((d2.view(torch.int32) != want_d2.view(torch.int32))
+                      .sum())
+        err = finite_max_abs(chosen_d2(ref, query, got),
+                             chosen_d2(ref, query, want))
         check(n_diff == 0, f"knn {case}: {n_diff} indices differ "
                            f"(chosen d2 up to {err} apart)")
+        check(d2_diff == 0, f"knn {case}: {d2_diff} winners' d2 differ "
+                            f"(up to {finite_max_abs(d2, want_d2)} apart)")
         if case.startswith("ties"):
             check(bool((got < r - r // 2).all()),
                   "knn ties: a tie did not go to the lowest index")
+        if case == "nan_overflow":
+            check(bool((got[0] == 0).all() and torch.isposinf(d2[0]).all()),
+                  "knn nan_overflow: no finite distance, yet not index 0 "
+                  "and d2 +inf")
         max_err = max(max_err, err)
         results.append(dict(case=case, B=b, R=r, Q=q, index_mismatches=n_diff,
-                            max_abs_err=err))
+                            d2_mismatches=d2_diff, max_abs_err=err))
     emit(dict(phase="knn_vs_plain", ok=True, cases=results,
-              tolerance="identical indices"))
+              tolerance="identical indices and d2 bits"))
     return max_err
 
 
@@ -878,7 +956,38 @@ def phase_train(device, small, counts, setup):
 # --------------------------------------------------------------- phase 7
 
 
-def phase_knn_timing(device, small):
+def knn_icp_timing(device, ref, query):
+    """The knn kernel at ICP's shape, with the d2 output ICP reads: the
+    bound, and on the card the kernel's, the plain version's and the
+    yardstick's times and the wrapper's host time a call."""
+    from morefusion_tpu_torch.ops import knn
+
+    B, R, _ = ref.shape
+    Q = query.shape[1]
+    bound_ms, bound_by = knn_bound(ref, query, with_d2=True)
+    row = dict(shape=dict(B=B, Q=Q, R=R), pairs=B * Q * R,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if device.type != "cuda":
+        row.update(kernel_ms=None, host_ms=None, plain_ms=None,
+                   library_ms=None)
+        return row
+
+    def kernel():
+        return knn.nn_indices(ref, query, return_d2=True)
+
+    row.update(
+        kernel_ms=cuda_ms(kernel, 200),
+        host_ms=host_ms(kernel, 200),
+        plain_ms=cuda_ms(
+            lambda: knn.nn_indices_plain(ref, query, return_d2=True), 50),
+        # yardstick only, never called by the port: distances, not squared
+        library_ms=cuda_ms(lambda: torch.cdist(query, ref).min(dim=2), 50),
+        library_call="torch.cdist(query, ref).min(dim=2) (two calls)",
+    )
+    return row
+
+
+def phase_knn_timing(device, small, icp_clouds):
     from morefusion_tpu_torch.ops import knn
 
     B, M, N = ((TRAIN_B, TRAIN_POSES, TRAIN_CAD) if not small
@@ -887,7 +996,8 @@ def phase_knn_timing(device, small):
     bound_ms, bound_by = knn_bound(ref, query)
     pairs = B * M * N * N
     row = dict(phase="knn_timing", shape=dict(B=B, Q=M * N, R=N),
-               pairs=pairs, bound_ms=bound_ms, bound_by=bound_by)
+               pairs=pairs, bound_ms=bound_ms, bound_by=bound_by,
+               icp_shape=knn_icp_timing(device, *icp_clouds))
     if device.type != "cuda":
         row.update(kernel_ms=None, plain_ms=None, library_ms=None,
                    slots_per_pair=None,
@@ -912,6 +1022,198 @@ def phase_knn_timing(device, small):
     )
     emit(row)
     return row
+
+
+# --------------------------------------------------------------- phase 8
+
+
+def rotation_about(axis, degrees):
+    """Rotation matrix by ``degrees`` about the unit vector ``axis``."""
+    K = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
+                  [-axis[1], axis[0], 0.0]])
+    a = np.radians(degrees)
+    return np.eye(3) + np.sin(a) * K + (1.0 - np.cos(a)) * K @ K
+
+
+def make_icp_scene(seed, small):
+    """Four procedural objects side by side 0.8 m from the camera: each
+    class's CAD points (4000; 1000 in the rehearsal), the camera-facing half
+    of them under the true pose (the nearer half in depth) plus 1 mm of
+    Gaussian noise as the observed depth points, the true pose, and the
+    true pose turned 6 degrees about a random axis and moved 8 mm in a
+    random direction as the start."""
+    from morefusion_tpu_torch.datasets import ProceduralModels
+
+    g = np.random.RandomState(seed)
+    models = ProceduralModels()
+    scene = []
+    for k, class_id in enumerate(ICP_CLASSES):
+        cad = models.get_pcd(class_id)[: 1000 if small else None]
+        T = np.eye(4)
+        T[:3, :3] = random_rotation(g)
+        T[:3, 3] = [0.2 * k - 0.3, g.uniform(-0.03, 0.03), 0.8]
+        world = cad @ T[:3, :3].T + T[:3, 3]
+        near = world[:, 2] < np.median(world[:, 2])
+        depth = world[near] + g.normal(0, 0.001, (int(near.sum()), 3))
+        axis = g.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        shift = g.normal(size=3)
+        P = np.eye(4)
+        P[:3, :3] = rotation_about(axis, 6.0)
+        P[:3, 3] = 0.008 * shift / np.linalg.norm(shift)
+        scene.append(dict(class_id=class_id, cad=cad, depth=depth, T_true=T,
+                          T_init=T @ P))
+    return scene
+
+
+def icp_clouds(scene, device, voxel_size=0.01):
+    """The knn call of the first ICP iteration on the scene's first object:
+    ``ref`` its down-sampled CAD points, ``query`` its down-sampled depth
+    points moved by the inverted start pose, each ``(1, n, 3)``."""
+    from morefusion_tpu_torch.geometry import voxel_down_sample
+
+    obj = scene[0]
+    cad = voxel_down_sample(obj["cad"], voxel_size).astype(np.float32)
+    depth = voxel_down_sample(obj["depth"], voxel_size)
+    T = np.linalg.inv(obj["T_init"])
+    moved = (depth @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    return tuple(torch.from_numpy(a[None]).to(device) for a in (cad, moved))
+
+
+def add_errors(scene, poses):
+    """Each object's ADD and ADD-S (metres) of ``poses`` against the true
+    poses, over all its CAD points, and the score the YCB-Video protocol
+    takes: ADD-S for a symmetric class, ADD otherwise."""
+    from morefusion_tpu_torch import metrics
+    from morefusion_tpu_torch.datasets.ycb_video.class_names import (
+        class_ids_symmetric,
+    )
+
+    add, add_s = metrics.average_distance(
+        [obj["cad"].astype(np.float64) for obj in scene],
+        [obj["T_true"] for obj in scene], list(poses))
+    score = np.where(
+        np.isin([obj["class_id"] for obj in scene], class_ids_symmetric),
+        add_s, add)
+    return dict(add=add.tolist(), add_s=add_s.tolist(),
+                add_or_add_s=score.tolist())
+
+
+def icc_for_scene(scene, device, V=32):
+    """``IterativeCollisionCheck`` on the scene from the start poses: each
+    object's solid points and SDF from the procedural bank, its grid
+    centred on its start pose, its own observed points as the target grid
+    and the other objects' as the no-entry grid."""
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+    from morefusion_tpu_torch.datasets import ProceduralModels
+
+    models = ProceduralModels()
+    solids = [models.get_solid_voxel_grid(obj["class_id"]) for obj in scene]
+    pitch = np.array([2.4 * np.linalg.norm(obj["cad"], axis=1).max() / V
+                      for obj in scene], np.float32)
+    origin = np.stack([obj["T_init"][:3, 3] - p * (V / 2.0 - 0.5)
+                       for obj, p in zip(scene, pitch)]).astype(np.float32)
+    target = np.stack([occupancy_grid(obj["depth"], origin[i], pitch[i], V)
+                       for i, obj in enumerate(scene)])
+    nontarget = np.stack([
+        occupancy_grid(np.concatenate(
+            [o["depth"] for j, o in enumerate(scene) if j != i]),
+            origin[i], pitch[i], V) for i in range(len(scene))])
+    return IterativeCollisionCheck(
+        [obj["T_init"] for obj in scene],
+        [s.points.astype(np.float32) for s in solids],
+        [s.inside_distance.astype(np.float32) for s in solids],
+        pitch, origin, target, nontarget, voxel_dim=V, max_points=2048,
+        device=device)
+
+
+def phase_icp(device, small, counts, scene):
+    from morefusion_tpu_torch import metrics
+    from morefusion_tpu_torch.contrib import ICPRegistration
+    from morefusion_tpu_torch.contrib import icp
+
+    def register(T_start, dev):
+        out = []
+        for obj, T in zip(scene, T_start):
+            reg = ICPRegistration(obj["depth"], obj["cad"], T, device=dev)
+            t0 = time.perf_counter()
+            T_icp = reg.register()
+            out.append((T_icp, reg.last_n_iterations,
+                        (time.perf_counter() - t0) * 1e3))
+        return out
+
+    T_init = [obj["T_init"] for obj in scene]
+    register(T_init, device)  # warm-up
+    # the main path, counted
+    for c in counts:
+        c.launches = 0
+    got = register(T_init, device)
+    launches = {c.__name__: c.launches for c in counts}
+    n_iter = [n for _, n, _ in got]
+    if device.type == "cuda":
+        check(launches["nn_indices"] == sum(n_iter),
+              f"icp: {launches['nn_indices']} knn launches for "
+              f"{sum(n_iter)} iterations")
+    check(all(np.isfinite(T).all() for T, _, _ in got), "icp: bad poses")
+
+    # the card against the CPU, from the same start poses
+    want = register(T_init, "cpu")
+    pose_err = max(float(np.abs(a[0] - b[0]).max())
+                   for a, b in zip(got, want))
+    check([n for _, n, _ in want] == n_iter,
+          f"icp: iterations {n_iter} (card) vs "
+          f"{[n for _, n, _ in want]} (cpu)")
+    check(pose_err <= ICP_POSE_ATOL, f"icp: card and cpu poses "
+                                     f"{pose_err} apart")
+
+    # what the gated loop's host read of the RMSE costs: the same
+    # iterations without it (a fixed count queued back to back)
+    cad, depth = (a[0] for a in icp_clouds(scene, device))
+    T0 = torch.eye(4, device=device)
+    _, n0 = icp.icp_point_to_point_gated(depth, cad, T0)
+    timing = {}
+    for name, fn in (
+            ("gated", lambda: icp.icp_point_to_point_gated(depth, cad, T0)),
+            ("fixed", lambda: icp.icp_point_to_point(
+                depth, cad, T0, iterations=n0))):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        sync(device)
+        timing[name] = (time.perf_counter() - t0) / 3 * 1e3 / n0
+
+    # ICC, then ICP from its poses
+    icc = icc_for_scene(scene, device)
+    T_icc, icc_losses, icc_n = icc.refine(iterations=30)
+    got_icc = register(T_icc, device)
+    errors = dict(
+        raw=add_errors(scene, T_init),
+        icp=add_errors(scene, [T for T, _, _ in got]),
+        icc=add_errors(scene, T_icc),
+        icc_icp=add_errors(scene, [T for T, _, _ in got_icc]))
+    auc = {k: float(metrics.ycb_video_add_auc(np.asarray(v["add_or_add_s"])))
+           for k, v in errors.items()}
+    mean_add = {k: float(np.mean(v["add"])) for k, v in errors.items()}
+    check(mean_add["icp"] < mean_add["raw"],
+          f"icp: mean ADD {mean_add['icp']} after, {mean_add['raw']} before")
+    register_ms = [ms for _, _, ms in got]
+    emit(dict(phase="icp", ok=True, device=str(device),
+              classes=list(ICP_CLASSES),
+              points=dict(cad=[len(o["cad"]) for o in scene],
+                          depth=[len(o["depth"]) for o in scene]),
+              n_iterations=n_iter, launches=launches,
+              card_vs_cpu_pose_err=pose_err,
+              tolerance=dict(pose=ICP_POSE_ATOL, n_iterations="equal"),
+              register_ms=register_ms,
+              ms_per_iteration=sum(register_ms) / sum(n_iter),
+              first_object_ms_per_iteration=timing,
+              icc=dict(n_iter=icc_n, first_loss=float(icc_losses[0]),
+                       best_loss=float(min(icc_losses))),
+              icc_icp_n_iterations=[n for _, n, _ in got_icc],
+              errors=errors, mean_add=mean_add, add_auc=auc))
+    return launches["nn_indices"]
 
 
 # ------------------------------------------------------------------ main
@@ -951,8 +1253,9 @@ def main(argv=None):
 
     setup = train_setup(device, small)
     train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
+    icp_scene = make_icp_scene(9, small)
     max_err = phase_kernel_vs_plain(device, small, train_inputs)
-    phase_serving(device, small, counts)
+    serving_icp_launches = phase_serving(device, small, counts)
     icc_launches = phase_icc(device, small, counts)
     if not small:
         check(icc_launches > 0, "icc: the min_dist kernel was never launched")
@@ -960,7 +1263,11 @@ def main(argv=None):
     del train_inputs
     knn_err = phase_knn_vs_plain(device, small)
     train_launches = phase_train(device, small, counts, setup)
-    knn_timing = phase_knn_timing(device, small)
+    knn_timing = phase_knn_timing(device, small,
+                                  icp_clouds(icp_scene, device))
+    icp_launches = phase_icp(device, small, counts, icp_scene)
+    if not small:
+        check(icp_launches > 0, "icp: the knn kernel was never launched")
 
     kernels = [dict(
         name="min_dist", route="cuda",
@@ -981,12 +1288,18 @@ def main(argv=None):
         name="knn", route="cuda",
         source="morefusion_tpu_torch/csrc/knn.cu",
         replaces="morefusion_tpu/ops/knn_pallas.py:36",
-        launches=train_launches["nn_indices"],
-        launches_by_path=dict(train_5_steps=train_launches["nn_indices"]),
+        launches=(train_launches["nn_indices"] + icp_launches
+                  + serving_icp_launches),
+        launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
+                              icp=icp_launches,
+                              serving_icp=serving_icp_launches),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],
         slots_per_pair=knn_timing["slots_per_pair"],
+        icp_shape={k: knn_timing["icp_shape"][k] for k in (
+            "shape", "kernel_ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
     )]
     if small:
         emit(dict(rehearsal_kernels=kernels))

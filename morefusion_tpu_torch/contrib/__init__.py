@@ -5,3 +5,7 @@
 from .collision_refine import IterativeCollisionCheck
 from .collision_refine import icc_loss
 from .collision_refine import refine_collision
+from .icp import ICPRegistration
+from .icp import gradient_icp
+from .icp import icp_point_to_point
+from .icp import icp_point_to_point_gated

@@ -2,15 +2,18 @@
 //
 // Replaces the TPU kernel morefusion_tpu/ops/knn_pallas.py::_kernel (reached
 // through nn_pallas, which nothing in the JAX package calls: its ADD-S runs
-// the XLA expansion of functions/knn.py::nn, and this kernel takes that
-// function's place in the port's train step). It computes, for every lane b
-// and query q,
+// the XLA expansion of functions/knn.py::nn and its ICP pairwise_sq_dist,
+// and this kernel takes their places in the port's train step and in every
+// ICP iteration). It computes, for every lane b and query q,
 //   out[b, q] = argmin over r of |query[b, q] - ref[b, r]|^2
 // with d2 = (dx*dx + dy*dy) + dz*dz, every operation rounded (no FMA
 // contraction), the lowest index winning a tie, a NaN distance counting as
 // +inf, and 0 where no distance is finite: bit for bit the indices of
-// ops/knn.py::nn_indices_plain. No gradient: the ADD-S loss only gathers the
-// winners.
+// ops/knn.py::nn_indices_plain. Where the caller passes d2_out, it also
+// writes the winner's d2 there (+inf where no distance is finite), bit for
+// bit the plain version's; ICP gates its correspondences and forms its RMSE
+// from it. With a null d2_out nothing more is written, so ADD-S keeps its
+// path. No gradient: the callers only gather the winners.
 //
 // What bounds it on an H100: instruction issue on the CUDA cores (132 SMs x
 // 128 lanes x 1.98 GHz = 3.35e13 slots/s). At the training shape (B = 16
@@ -72,7 +75,8 @@ __global__ void __launch_bounds__(kThreads)
 knn_kernel(const float* __restrict__ ref,    // (B, R, 3)
            const float* __restrict__ query,  // (B, Q, 3)
            int R, int Q,
-           int32_t* __restrict__ out) {      // (B, Q)
+           int32_t* __restrict__ out,        // (B, Q)
+           float* __restrict__ d2_out) {     // (B, Q) or null
   __shared__ float4 s_ref[kTile];
 
   const int b = blockIdx.y;
@@ -151,6 +155,10 @@ knn_kernel(const float* __restrict__ ref,    // (B, R, 3)
       }
     }
     out[static_cast<size_t>(b) * Q + q] = arg;
+    // best never rises above +inf's bits, so a query with no finite
+    // distance reads +inf
+    if (d2_out != nullptr)
+      d2_out[static_cast<size_t>(b) * Q + q] = __uint_as_float(best[u]);
   }
 }
 
@@ -159,9 +167,10 @@ knn_kernel(const float* __restrict__ ref,    // (B, R, 3)
 extern "C" {
 
 // Launches on `stream` of device `device` and returns cudaGetLastError()
-// after the launch (0 = cudaSuccess). Does not synchronise.
+// after the launch (0 = cudaSuccess). Does not synchronise. `d2_out` may be
+// null.
 int mfk_knn(const void* ref, const void* query, int B, int R, int Q,
-            void* out, int device, void* stream) {
+            void* out, void* d2_out, int device, void* stream) {
   if (B <= 0 || Q <= 0) return static_cast<int>(cudaSuccess);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -170,7 +179,7 @@ int mfk_knn(const void* ref, const void* query, int B, int R, int Q,
                   B);
   knn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ref), static_cast<const float*>(query), R, Q,
-      static_cast<int32_t*>(out));
+      static_cast<int32_t*>(out), static_cast<float*>(d2_out));
   return static_cast<int>(cudaGetLastError());
 }
 

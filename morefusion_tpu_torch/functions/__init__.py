@@ -3,6 +3,7 @@
 # flake8: noqa: F401
 
 from .knn import nn
+from .knn import pairwise_sq_dist
 from .loss import average_distance
 from .loss import average_distance_both
 from .loss import densefusion_confidence_loss

@@ -1,8 +1,9 @@
 """NumPy host helpers the port needs, kept as its own copies.
 
-Copies of ``morefusion_tpu/geometry/bbox.py::masks_to_bboxes`` and of
+Copies of ``morefusion_tpu/geometry/bbox.py::masks_to_bboxes``, of
 ``quaternion_matrix_np``, ``quaternion_from_matrix`` and
-``translation_from_matrix`` from ``morefusion_tpu/geometry/transform.py``.
+``translation_from_matrix`` from ``morefusion_tpu/geometry/transform.py``,
+and of ``voxel_down_sample`` from ``morefusion_tpu/geometry/pointcloud.py``.
 Quaternions are ``(w, x, y, z)``.
 """
 
@@ -84,3 +85,20 @@ def quaternion_from_matrix(matrix) -> np.ndarray:
 
 def translation_from_matrix(matrix) -> np.ndarray:
     return np.asarray(matrix, dtype=np.float64)[:3, 3].copy()
+
+
+def voxel_down_sample(points: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Voxel-grid down-sampling: the mean of the points in each occupied
+    voxel, NaN rows dropped. Voxels come in ``np.unique``'s order (sorted by
+    their integer coordinates), which ICP's lowest-index tie rule sees."""
+    points = np.asarray(points)
+    points = points[~np.isnan(points).any(axis=1)]
+    if len(points) == 0:
+        return points
+    coords = np.floor(points / voxel_size).astype(np.int64)
+    _, inverse, counts = np.unique(
+        coords, axis=0, return_inverse=True, return_counts=True
+    )
+    sums = np.zeros((len(counts), 3), dtype=points.dtype)
+    np.add.at(sums, inverse, points)
+    return sums / counts[:, None]

@@ -2,8 +2,9 @@
 
 Replaces ``morefusion_tpu/ops/knn_pallas.py::_kernel`` (``nn_pallas``, which
 has no caller in the JAX package: its ADD-S runs the XLA expansion of
-``functions/knn.py::nn``, whose place this kernel takes in the port's train
-step). The kernel is
+``functions/knn.py::nn`` and its ICP ``pairwise_sq_dist``, whose places this
+kernel takes in the port's train step and in ``contrib/icp.py``). The kernel
+is
 ``csrc/knn.cu`` (its header says what bounds it and how it is laid out);
 :func:`nn_indices` launches it for CUDA tensors and runs
 :func:`nn_indices_plain` for CPU tensors, and for nothing else.
@@ -12,7 +13,10 @@ Contract, for ``ref (B, R, 3)`` and ``query (B, Q, 3)`` float32, ``R >= 1``:
 ``(B, Q)`` int32, the index into ``ref[b]`` of the nearest reference point
 of ``query[b, q]`` by ``dx*dx + dy*dy + dz*dz`` in float32 (each operation
 rounded, summed in that order), the lowest index on a tie. A NaN distance
-counts as ``+inf``; a query with no finite distance gets 0.
+counts as ``+inf``; a query with no finite distance gets 0. With
+``return_d2=True`` also ``(B, Q)`` float32, the winner's squared distance by
+that same arithmetic (``+inf`` where no distance is finite): ICP's gate and
+RMSE read it.
 """
 
 from __future__ import annotations
@@ -41,13 +45,15 @@ def _check_args(ref, query):
                          f"{query.device}")
 
 
-def nn_indices_plain(ref, query):
+def nn_indices_plain(ref, query, return_d2=False):
     """The kernel's arithmetic in PyTorch, a block of queries at a time."""
     _check_args(ref, query)
     B, R, _ = ref.shape
     Q = query.shape[1]
     chunk = max(1, _PLAIN_BLOCK // (B * R))
     out = torch.empty((B, Q), dtype=torch.int32, device=query.device)
+    best = (torch.empty((B, Q), dtype=torch.float32, device=query.device)
+            if return_d2 else None)
     r = ref[:, None, :, :]  # (B, 1, R, 3)
     for base in range(0, Q, chunk):
         q = query[:, base:base + chunk, None, :]  # (B, n, 1, 3)
@@ -55,13 +61,18 @@ def nn_indices_plain(ref, query):
         dy = q[..., 1] - r[..., 1]
         dz = q[..., 2] - r[..., 2]
         d2 = (dx * dx + dy * dy) + dz * dz
-        d2 = torch.nan_to_num(d2, nan=float("inf"))
+        # NaN counts as +inf, and +inf stays +inf (nan_to_num's default
+        # would turn it into the largest float, below a NaN's +inf)
+        d2 = torch.nan_to_num(d2, nan=float("inf"), posinf=float("inf"))
         # first index wins a tie; an all-inf row gives 0
-        out[:, base:base + chunk] = torch.argmin(d2, dim=2).to(torch.int32)
-    return out
+        arg = torch.argmin(d2, dim=2, keepdim=True)
+        out[:, base:base + chunk] = arg[..., 0].to(torch.int32)
+        if return_d2:
+            best[:, base:base + chunk] = torch.gather(d2, 2, arg)[..., 0]
+    return (out, best) if return_d2 else out
 
 
-def nn_indices(ref, query):
+def nn_indices(ref, query, return_d2=False):
     """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
 
     The output is allocated here and the kernel runs on the current stream
@@ -69,7 +80,7 @@ def nn_indices(ref, query):
     """
     _check_args(ref, query)
     if query.device.type == "cpu":
-        return nn_indices_plain(ref, query)
+        return nn_indices_plain(ref, query, return_d2)
     if query.device.type != "cuda":
         raise ValueError(f"no knn kernel for device {query.device}")
     for name, t in (("ref", ref), ("query", query)):
@@ -82,13 +93,16 @@ def nn_indices(ref, query):
     if Q > 2**31 - 256:
         raise ValueError(f"at most 2**31 - 256 queries a lane, got {Q}")
     out = torch.empty((B, Q), dtype=torch.int32, device=query.device)
+    d2 = (torch.empty((B, Q), dtype=torch.float32, device=query.device)
+          if return_d2 else None)
     lib = _build.load()
     stream = torch.cuda.current_stream(query.device).cuda_stream
     err = lib.mfk_knn(ref.data_ptr(), query.data_ptr(), B, R, Q,
-                      out.data_ptr(), query.device.index, stream)
+                      out.data_ptr(), None if d2 is None else d2.data_ptr(),
+                      query.device.index, stream)
     _build.check(lib, err, "knn launch")
     nn_indices.launches += 1
-    return out
+    return (out, d2) if return_d2 else out
 
 
 nn_indices.launches = 0

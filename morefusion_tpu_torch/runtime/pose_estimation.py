@@ -1,10 +1,11 @@
-"""Pose-estimation node: instance crops -> SingleView3D -> best poses.
+"""Pose-estimation node: instance crops -> SingleView3D -> best poses (+ICP).
 
-Port of ``morefusion_tpu/runtime/pose_estimation.py`` without ICP (the
-port's ``estimate`` returns the network's poses; ICP is not ported yet).
-Per frame, the host ships one RGB frame, one organized cloud, the instance
-label image and per-instance scalars; cropping, the forward and the
-best-confidence readout run on the device.
+Port of ``morefusion_tpu/runtime/pose_estimation.py``. Per frame, the host
+ships one RGB frame, one organized cloud, the instance label image and
+per-instance scalars; cropping, the forward and the best-confidence readout
+run on the device. With ``with_icp=True``, :meth:`PoseEstimationNode.resolve`
+then refines each pose by ICP against the instance's observed points, one
+object at a time, as the JAX node does.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..contrib.icp import ICPRegistration
 from ..functions.transforms import transformation_matrix
 from ..geometry import masks_to_bboxes
 
@@ -94,7 +96,11 @@ class PoseEstimationNode:
     ``model`` is a port ``SingleView3D`` with its weights loaded;
     ``voxel_pitch(voxel_dim, class_id)`` gives each class's voxel size (a
     models bank's ``get_voxel_pitch``). The instance batch is padded to a
-    power of two with copies of the first instance.
+    power of two with copies of the first instance. With ``with_icp=True``,
+    ``cad_points(class_id)`` gives each class's CAD points (a models bank's
+    ``get_pcd``), where the JAX node reads both from its ``models``; after
+    each frame ``last_icp_iterations`` maps each refined instance to its ICP
+    iterations.
     """
 
     def __init__(
@@ -104,12 +110,19 @@ class PoseEstimationNode:
         image_size: int = 256,
         voxel_dim: int = 32,
         device="cuda",
+        with_icp: bool = False,
+        cad_points: Optional[Callable[[int], np.ndarray]] = None,
     ):
+        if with_icp and cad_points is None:
+            raise ValueError("with_icp=True needs cad_points")
         self._device = torch.device(device)
         self._model = model.to(self._device).eval()
         self._voxel_pitch = voxel_pitch
         self._image_size = image_size
         self._voxel_dim = voxel_dim
+        self._with_icp = with_icp
+        self._cad_points = cad_points
+        self.last_icp_iterations = {}
 
     @torch.inference_mode()
     def _predict_frame(self, rgb, pcd, label, ins_ids, bboxes, class_ids,
@@ -207,20 +220,32 @@ class PoseEstimationNode:
             put(np.stack(grids)[take]),
             idx,
         )
-        return dict(T=T, conf=conf, ids=ids, class_ids=class_ids, B=B)
+        return dict(T=T, conf=conf, ids=ids, class_ids=class_ids, B=B,
+                    pcd=pcd, instance_label=instance_label)
 
     def resolve(self, handle: Optional[dict]) -> Dict[int, dict]:
-        """Read back a dispatched frame's poses."""
+        """Read back a dispatched frame's poses; with ICP, refine each pose
+        whose instance has more than 10 finite points."""
+        self.last_icp_iterations = {}
         if handle is None:
             return {}
         B = handle["B"]
         Ts = handle["T"].cpu().numpy().astype(np.float64)[:B]
         confs = handle["conf"].cpu().numpy()[:B]
-        return {
-            ins_id: dict(
-                T_cad2cam=Ts[k],
-                class_id=int(handle["class_ids"][k]),
-                confidence=float(confs[k]),
-            )
-            for k, ins_id in enumerate(handle["ids"])
-        }
+        pcd, label = handle["pcd"], handle["instance_label"]
+        results = {}
+        for k, ins_id in enumerate(handle["ids"]):
+            T = Ts[k]
+            class_id = int(handle["class_ids"][k])
+            if self._with_icp:
+                depth_points = pcd[(label == ins_id)
+                                   & ~np.isnan(pcd).any(axis=2)]
+                if len(depth_points) > 10:
+                    reg = ICPRegistration(depth_points,
+                                          self._cad_points(class_id), T,
+                                          device=self._device)
+                    T = reg.register()
+                    self.last_icp_iterations[ins_id] = reg.last_n_iterations
+            results[ins_id] = dict(T_cad2cam=T, class_id=class_id,
+                                   confidence=float(confs[k]))
+        return results

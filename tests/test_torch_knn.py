@@ -157,21 +157,31 @@ def _edge_inputs(case):
         # reference, lane 1 has one reference that far
         query[0, :, 2] = 3e38
         ref[1, 5] = -3e38
+    if case == "nan_and_overflow":
+        # lane 0: reference 0 gives NaN, every other one overflows, so no
+        # distance is finite and index 0 wins
+        ref[0, 0, 0] = np.nan
+        ref[0, 1:, 2] = 3e38
     return ref, query
 
 
-def _numpy_contract_nn(ref, query):
+def _numpy_contract_nn(ref, query, return_d2=False):
     """The contract in numpy float32: argmin of ``(dx*dx + dy*dy) + dz*dz``
-    with NaN as inf, the first index on a tie, 0 where nothing is finite."""
+    with NaN as inf, the first index on a tie, 0 where nothing is finite;
+    and the winner's d2, inf where nothing is finite."""
     d = query[:, :, None, :] - ref[:, None, :, :]
     with np.errstate(over="ignore", invalid="ignore"):
         d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
             + d[..., 2] * d[..., 2]
     d2 = np.where(np.isnan(d2), np.float32(np.inf), d2)
-    return np.argmin(d2, axis=-1).astype(np.int32)
+    idx = np.argmin(d2, axis=-1).astype(np.int32)
+    if not return_d2:
+        return idx
+    return idx, np.take_along_axis(d2, idx[..., None], -1)[..., 0]
 
 
-KNN_EDGE_CASES = ["ragged_block", "ties_across_tiles", "nan", "overflow"]
+KNN_EDGE_CASES = ["ragged_block", "ties_across_tiles", "nan", "overflow",
+                  "nan_and_overflow"]
 
 
 @pytest.mark.parametrize("case", KNN_EDGE_CASES)
@@ -184,6 +194,33 @@ def test_plain_matches_numpy_contract_on_edge_cases(case):
         assert (got < ref.shape[1] // 2).all()
     if case == "overflow":
         assert (got[0] == 0).all() and (got[1] != 5).all()
+    if case == "nan_and_overflow":
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["random", "far", *KNN_EDGE_CASES])
+def test_plain_d2_matches_numpy_contract(case):
+    """The winner's d2 (``return_d2=True``): bit for bit the contract's,
+    +inf for a NaN query and where every distance overflows; the indices
+    as without it."""
+    ref, query = (_inputs(11, 2, 60, 400, case) if case in ("random", "far")
+                  else _edge_inputs(case))
+    idx, d2 = ops_knn.nn_indices_plain(torch.from_numpy(ref),
+                                       torch.from_numpy(query),
+                                       return_d2=True)
+    want_idx, want_d2 = _numpy_contract_nn(ref, query, return_d2=True)
+    assert d2.dtype == torch.float32 and d2.shape == idx.shape
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(d2.numpy().view(np.int32),
+                                  want_d2.view(np.int32))
+    np.testing.assert_array_equal(
+        idx.numpy(), ops_knn.nn_indices(torch.from_numpy(ref),
+                                        torch.from_numpy(query)).numpy())
+    if case == "nan":
+        assert np.isposinf(d2[1, :60].numpy()).all()
+    if case in ("overflow", "nan_and_overflow"):
+        assert np.isposinf(d2[0].numpy()).all()
+        assert np.isfinite(d2[1].numpy()).all()
 
 
 # the card test's cases besides the edge cases: (B, R, Q) of _inputs
@@ -202,7 +239,12 @@ def test_kernel_matches_plain_on_the_card(case):
     ref, query = (torch.from_numpy(a).cuda() for a in inputs)
     before = ops_knn.nn_indices.launches
     got = ops_knn.nn_indices(ref, query)
+    got_with_d2, d2 = ops_knn.nn_indices(ref, query, return_d2=True)
     torch.cuda.synchronize()
-    assert ops_knn.nn_indices.launches == before + 1
-    torch.testing.assert_close(got, ops_knn.nn_indices_plain(ref, query),
-                               rtol=0, atol=0)
+    assert ops_knn.nn_indices.launches == before + 2
+    want, want_d2 = ops_knn.nn_indices_plain(ref, query, return_d2=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got_with_d2, want, rtol=0, atol=0)
+    # d2 bit for bit (+inf where no distance is finite)
+    torch.testing.assert_close(d2.view(torch.int32),
+                               want_d2.view(torch.int32), rtol=0, atol=0)
