@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc``, then runs eight phases, each printing one
+and ``knn.cu``) with ``nvcc``, then runs nine phases, each printing one
 JSON line:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
@@ -21,10 +21,11 @@ JSON line:
    its knn launches counted (one per ICP iteration) and its frames timed
    (the frame's ellipsoids are no CAD shapes: this checks the wiring, not
    accuracy);
-3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations) on eight
-   synthetic objects of 2048 points, against the same refine with the
-   plain version in deterministic mode (losses and poses identical), then
-   timed; its kernel launches are counted;
+3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations, all on the
+   device) on eight synthetic objects of 2048 points, against the same
+   refine with the plain version in deterministic mode (losses and poses
+   identical), then timed; its kernel launches are counted (one an
+   iteration);
 4. min-distance kernel timing at the ICC and the train step's shapes,
    beside the plain version, one PyTorch yardstick, the card's bound and
    the wrapper's host time a call;
@@ -53,7 +54,22 @@ JSON line:
    the CPU (poses within ``ICP_POSE_ATOL``, equal iterations), its knn
    launches counted (one per iteration), timed per register by the host
    clock, ADD and ADD-S before and after; then ICC followed by ICP on the
-   same objects, and the ADD(-S) AUC of the raw, +icp and +icc+icp poses.
+   same objects, and the ADD(-S) AUC of the raw, +icp and +icc+icp poses;
+9. the scene pipeline at ``bench.py``'s configuration: ``ScenePipeline``
+   (fusion on the C++ mapping built with g++ into ``_build/libmfm.so``,
+   tracking, the pose node with the occupancy checkpoint, object mapping,
+   async ICC) on 4 procedural objects in 240x320 frames from
+   ``PlaneTypeSceneGeneration(RandomState(1))``: warm-up, two replays, a
+   timed ``process_stream`` of 12 frames with ``scene_pipeline_fps`` and
+   the host time per frame of each stage, its min_dist launches (30 a
+   refine); ``refine_async`` under CUDA's sync debug mode (no
+   synchronising call); one synchronous pass on the card against the CPU
+   in deterministic mode with the same pixel draws (labels, instance
+   classes, uint8 grids and spawns identical, poses within
+   ``PIPE_POSE_ATOL``, the ICC problems equal and replayed for
+   ``ICC_REPLAY_ITERATIONS`` on both, and for the pipeline's 30 within the
+   CPU's own spread under a start jitter); one pass with ICP, its knn launches
+   counted; and whether cv2, scipy and sklearn import.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -101,6 +117,19 @@ CPU_GRAD_RTOL, CPU_GRAD_TOTAL = 1e-3, 1e-5
 ICP_POSE_ATOL = 1e-4
 # sugar box, mustard bottle, mug, foam brick (symmetric: scored by ADD-S)
 ICP_CLASSES = (3, 5, 14, 21)
+# scene pipeline, card against CPU (phase 9): poses as the JAX parity tests
+# hold them; the ICC problems replayed for 5 iterations and held as
+# tests/test_torch_icc.py holds the refiner to JAX. Over the pipeline's 30
+# iterations the refine amplifies any rounding difference (see
+# tests/test_torch_pipeline.py::test_icc_30_iterations_within_jax_spread):
+# the card, from the CPU's starts, must end no farther from the CPU than
+# the CPU ends from itself when its start translations move by
+# ICC_START_JITTER, in ICC_JITTER_RUNS runs
+PIPE_POSE_ATOL = 1e-4
+ICC_LOSS_ATOL = 1e-5
+ICC_REPLAY_ITERATIONS = 5
+ICC_PIPELINE_ITERATIONS = 30
+ICC_START_JITTER, ICC_JITTER_RUNS = 1e-7, 3
 
 
 class CheckFailed(RuntimeError):
@@ -548,15 +577,16 @@ def phase_icc(device, small, counts):
         c.launches = 0
     Ts, losses, n_iter = refine()
     launches = {c.__name__: c.launches for c in counts}
-    evaluations = n_iter + (n_iter < iterations)
     check(Ts.shape == (N, 4, 4) and np.isfinite(Ts).all(), "icc: bad poses")
     check(losses.shape == (iterations,) and np.isfinite(losses).all(),
           "icc: bad losses")
     check(min(losses) <= losses[0], "icc: best loss above the first")
     if device.type == "cuda":
-        check(launches["min_dist_voxels"] == evaluations,
+        # the loop runs all its iterations on the device, frozen after the
+        # plateau stop: one loss evaluation each
+        check(launches["min_dist_voxels"] == iterations,
               f"icc: {launches['min_dist_voxels']} min_dist launches for "
-              f"{evaluations} loss evaluations")
+              f"{iterations} iterations")
 
     # time refine() alone: the objects (host padding and the upload of
     # their arrays) are built before the clock starts, one per call, so
@@ -1099,7 +1129,7 @@ def add_errors(scene, poses):
                 add_or_add_s=score.tolist())
 
 
-def icc_for_scene(scene, device, V=32):
+def icc_for_scene(scene, device, V=32, max_points=2048):
     """``IterativeCollisionCheck`` on the scene from the start poses: each
     object's solid points and SDF from the procedural bank, its grid
     centred on its start pose, its own observed points as the target grid
@@ -1123,7 +1153,7 @@ def icc_for_scene(scene, device, V=32):
         [obj["T_init"] for obj in scene],
         [s.points.astype(np.float32) for s in solids],
         [s.inside_distance.astype(np.float32) for s in solids],
-        pitch, origin, target, nontarget, voxel_dim=V, max_points=2048,
+        pitch, origin, target, nontarget, voxel_dim=V, max_points=max_points,
         device=device)
 
 
@@ -1185,7 +1215,9 @@ def phase_icp(device, small, counts, scene):
         timing[name] = (time.perf_counter() - t0) / 3 * 1e3 / n0
 
     # ICC, then ICP from its poses
-    icc = icc_for_scene(scene, device)
+    # (the rehearsal at a 16^3 grid of 256 points an object)
+    icc = (icc_for_scene(scene, device) if not small else
+           icc_for_scene(scene, device, V=16, max_points=256))
     T_icc, icc_losses, icc_n = icc.refine(iterations=30)
     got_icc = register(T_icc, device)
     errors = dict(
@@ -1214,6 +1246,411 @@ def phase_icp(device, small, counts, scene):
               icc_icp_n_iterations=[n for _, n, _ in got_icc],
               errors=errors, mean_add=mean_add, add_auc=auc))
     return launches["nn_indices"]
+
+
+# --------------------------------------------------------------- phase 9
+
+
+def importable(name):
+    try:
+        __import__(name)
+    except ImportError:
+        return False
+    return True
+
+
+def pipeline_frames(small):
+    """``bench.py``'s pipeline scene: 4 procedural objects on a plane from
+    ``RandomState(1)``, 3 views of a 5-keypoint camera path, rendered at
+    240x320 with 20,000 points an object (2 objects at 120x160 and 6000
+    points in the rehearsal), as stream frames with ground-truth labels."""
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.simulation import PlaneTypeSceneGeneration
+
+    shape, n_points = ((240, 320), 20000) if not small else ((120, 160), 6000)
+    models = ProceduralModels()
+    gen = PlaneTypeSceneGeneration(models, n_object=4 if not small else 2,
+                                   random_state=np.random.RandomState(1))
+    gen.generate()
+    traj = gen.random_camera_trajectory(5, 3)
+    frames = []
+    for T in traj:
+        f = gen.render_frame(T, shape=shape, n_points_per_object=n_points)
+        frames.append(dict(
+            rgb=f["rgb"].astype(np.float32), depth=f["depth"],
+            K=f["intrinsic_matrix"], T_cam2world=f["T_cam2world"],
+            instance_label=f["instance_label"],
+            instance_to_class={int(i): int(f["class_ids"][k])
+                               for k, i in enumerate(f["instance_ids"])}))
+    return models, frames
+
+
+def pipeline_model(small, voxel_dim):
+    from morefusion_tpu_torch import models
+
+    if small:
+        torch.manual_seed(7)
+        return models.tiny_singleview3d(21, n_point=64, with_occupancy=True,
+                                        voxel_dim=voxel_dim)
+    return serving_model(small, seed=7)
+
+
+def fixed_draw(node, seed=1234):
+    """Wrap ``node.dispatch`` so that each instance's pixels are drawn on
+    the CPU, from a generator seeded with ``seed`` on each call, out of its
+    crop's mask: the same pixels on every device."""
+    from morefusion_tpu_torch.geometry import masks_to_bboxes
+    from morefusion_tpu_torch.models.sampling import sample_mask_indices
+    from morefusion_tpu_torch.runtime.pose_estimation import (
+        _crop_instance_device,
+    )
+
+    dispatch = node.dispatch
+    n_point = node._model.n_point
+
+    def fed(rgb, pcd, label, inst_to_class, noentry_grids=None):
+        finite = ~np.isnan(pcd).any(axis=2)
+        ids, bboxes = [], []
+        for ins_id in inst_to_class:
+            mask = label == ins_id
+            if not (mask & finite).any():
+                continue
+            bbox = masks_to_bboxes(mask).round().astype(int)
+            if (bbox[2] - bbox[0]) * (bbox[3] - bbox[1]) == 0:
+                continue
+            ids.append(ins_id)
+            bboxes.append(bbox)
+        if not ids:
+            return dispatch(rgb, pcd, label, inst_to_class, noentry_grids)
+        _, pcd_c = _crop_instance_device(
+            torch.from_numpy(np.clip(rgb, 0, 255).astype(np.uint8)),
+            torch.from_numpy(pcd.astype(np.float32)),
+            torch.from_numpy(label.astype(np.int32)), torch.tensor(ids),
+            torch.from_numpy(np.stack(bboxes)), node._image_size)
+        idx = sample_mask_indices(~torch.isnan(pcd_c).any(-1), n_point,
+                                  torch.Generator().manual_seed(seed))
+        return dispatch(rgb, pcd, label, inst_to_class, noentry_grids,
+                        sample_indices=dict(zip(ids, idx.numpy())))
+
+    node.dispatch = fed
+
+
+class HostClock:
+    """Host time and calls of wrapped callables, by name."""
+
+    def __init__(self):
+        self.ms, self.calls = {}, {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.ms[name] = (self.ms.get(name, 0.0)
+                                 + (time.perf_counter() - t0) * 1e3)
+                self.calls[name] = self.calls.get(name, 0) + 1
+        return timed
+
+
+def record_icc(pipeline_module, problems):
+    """Patch the pipeline module's ``IterativeCollisionCheck`` so that each
+    ICC problem it builds is recorded, and what its refine returned."""
+    base = pipeline_module.IterativeCollisionCheck
+
+    class Recorded(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            problems.append(dict(args=args, kw=kw))
+
+        def resolve(self):
+            out = super().resolve()
+            problems[-1]["refined"] = out
+            return out
+
+    return mock.patch.object(pipeline_module, "IterativeCollisionCheck",
+                             Recorded)
+
+
+def run_sync_pass(models, frames, model, device, voxel_dim, n_votes):
+    """One synchronous pass (``async_refine=False``) with fixed pixel
+    draws: per frame the tracked labels, instance-to-class map, uint8 grids,
+    spawned ids and poses; and the ICC problems it built."""
+    from morefusion_tpu_torch.runtime import ScenePipeline
+    from morefusion_tpu_torch.runtime import pipeline as pipeline_module
+
+    pipe = ScenePipeline(model, models, voxel_dim=voxel_dim,
+                         n_votes=n_votes, native_mapping=True,
+                         size_filter=False, async_refine=False,
+                         device=device)
+    fixed_draw(pipe.pose_node)
+    prepared = []
+    prepare = pipe._prepare
+
+    def keep(*a, **k):
+        ctx = prepare(*a, **k)
+        prepared.append(ctx)
+        return ctx
+
+    pipe._prepare = keep
+    problems, out = [], []
+    with record_icc(pipeline_module, problems):
+        for f in frames:
+            poses = pipe.process_frame(
+                f["rgb"], f["depth"], f["K"], f["T_cam2world"],
+                instance_label=f["instance_label"],
+                instance_to_class=f["instance_to_class"])
+            ctx = prepared[-1]
+            out.append(dict(label=ctx["label"],
+                            inst_to_class=ctx["inst_to_class"],
+                            grids=ctx["grid_cache"],
+                            spawned=sorted(pipe.object_mapping.spawned),
+                            poses=poses))
+    return out, problems
+
+
+def compare_sync_passes(got, want, got_problems, want_problems, device):
+    """Card pass ``got`` against CPU pass ``want``. Returns the numbers,
+    and the list of what disagreed beyond its bound."""
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+
+    bad = []
+    pose_err = 0.0
+    refined_err = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g["label"], w["label"]):
+            bad.append(f"frame {k}: tracked labels differ")
+        if g["inst_to_class"] != w["inst_to_class"]:
+            bad.append(f"frame {k}: instance-to-class maps differ")
+        if sorted(g["grids"]) != sorted(w["grids"]) or any(
+                not np.array_equal(a, b) for i in g["grids"]
+                for a, b in zip(g["grids"][i], w["grids"].get(i, ()))):
+            bad.append(f"frame {k}: uint8 grids differ")
+        if g["spawned"] != w["spawned"]:
+            bad.append(f"frame {k}: spawned {g['spawned']} vs {w['spawned']}")
+        if sorted(g["poses"]) != sorted(w["poses"]):
+            bad.append(f"frame {k}: instances differ")
+            continue
+        for i, r in g["poses"].items():
+            for key in ("T_cad2cam", "T_cad2world"):
+                pose_err = max(pose_err, float(np.abs(
+                    r[key] - w["poses"][i][key]).max()))
+            if ("T_cad2world_refined" in r) != (
+                    "T_cad2world_refined" in w["poses"][i]):
+                bad.append(f"frame {k}: instance {i} refined on one side")
+            elif "T_cad2world_refined" in r:
+                refined_err = max(refined_err, float(np.abs(
+                    r["T_cad2world_refined"]
+                    - w["poses"][i]["T_cad2world_refined"]).max()))
+    if pose_err > PIPE_POSE_ATOL:
+        bad.append(f"poses {pose_err} apart")
+    # the ICC problems: start poses within the pose bound, the rest equal;
+    # then each replayed for a few iterations on both devices
+    replay_pose_err = replay_loss_err = 0.0
+    full_err = cpu_spread = 0.0
+    if len(got_problems) != len(want_problems):
+        bad.append(f"{len(got_problems)} vs {len(want_problems)} refines")
+    for k, (gp, wp) in enumerate(zip(got_problems, want_problems)):
+        start = float(np.abs(np.stack(gp["args"][0])
+                             - np.stack(wp["args"][0])).max())
+        if start > PIPE_POSE_ATOL:
+            bad.append(f"ICC start poses {start} apart")
+        if any(not np.array_equal(x, y) for a, b in zip(
+                gp["args"][1:], wp["args"][1:]) for x, y in zip(a, b)):
+            bad.append("ICC problems differ")
+        kw = {k: v for k, v in wp["kw"].items() if k != "device"}
+        T_g, l_g, n_g = IterativeCollisionCheck(
+            *wp["args"], **kw, device=device).refine(
+                iterations=ICC_REPLAY_ITERATIONS)
+        T_w, l_w, n_w = IterativeCollisionCheck(
+            *wp["args"], **kw, device="cpu").refine(
+                iterations=ICC_REPLAY_ITERATIONS)
+        replay_pose_err = max(replay_pose_err,
+                              float(np.abs(T_g - T_w).max()))
+        replay_loss_err = max(replay_loss_err,
+                              float(np.abs(l_g - l_w).max()))
+        if n_g != n_w:
+            bad.append(f"ICC replay n_iter {n_g} vs {n_w}")
+        # the pipeline's 30 iterations, against the CPU's own spread
+        T_c, _, n_c = wp["refined"]
+        T_g, _, n_g = IterativeCollisionCheck(
+            *wp["args"], **kw, device=device).refine(
+                iterations=ICC_PIPELINE_ITERATIONS)
+        full_err = max(full_err, float(np.abs(T_g - T_c).max()))
+        if n_g != n_c:
+            bad.append(f"ICC n_iter {n_g} vs {n_c}")
+        rng = np.random.RandomState(k)
+        for _ in range(ICC_JITTER_RUNS):
+            starts = [np.array(T) for T in wp["args"][0]]
+            for T in starts:
+                T[:3, 3] += rng.normal(0, ICC_START_JITTER, 3)
+            T_j, _, _ = IterativeCollisionCheck(
+                starts, *wp["args"][1:], **kw, device="cpu").refine(
+                    iterations=ICC_PIPELINE_ITERATIONS)
+            cpu_spread = max(cpu_spread, float(np.abs(T_j - T_c).max()))
+    if replay_pose_err > PIPE_POSE_ATOL or replay_loss_err > ICC_LOSS_ATOL:
+        bad.append(f"ICC replay poses {replay_pose_err}, losses "
+                   f"{replay_loss_err} apart")
+    if full_err > cpu_spread:
+        bad.append(f"ICC over {ICC_PIPELINE_ITERATIONS} iterations: card "
+                   f"{full_err} from the CPU, beyond the CPU's own spread "
+                   f"{cpu_spread}")
+    numbers = dict(max_pose_err=pose_err,
+                   icc_replay=dict(iterations=ICC_REPLAY_ITERATIONS,
+                                   max_pose_err=replay_pose_err,
+                                   max_loss_err=replay_loss_err),
+                   icc_full=dict(iterations=ICC_PIPELINE_ITERATIONS,
+                                 max_pose_err=full_err,
+                                 cpu_jitter_spread=cpu_spread,
+                                 jitter=ICC_START_JITTER,
+                                 jitter_runs=ICC_JITTER_RUNS),
+                   refined_30_iterations_max_diff=refined_err,
+                   refines=len(got_problems))
+    return numbers, bad
+
+
+def phase_pipeline(device, small, counts):
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+    from morefusion_tpu_torch.contrib import mapping_native
+    from morefusion_tpu_torch.runtime import ScenePipeline
+    from morefusion_tpu_torch.runtime import pipeline as pipeline_module
+
+    imports = {name: importable(name) for name in ("cv2", "scipy", "sklearn")}
+    built = mapping_native.stale()
+    build_s = mapping_native.build() if built else None
+    mapping_native.load_library()
+    t0 = time.perf_counter()
+    models, frames = pipeline_frames(small)
+    frames_s = time.perf_counter() - t0
+    V = 32 if not small else 16
+    model = pipeline_model(small, V)
+    n_timed = 12 if not small else 2
+    replays = 2 if not small else 1
+
+    def make(n_votes, **kw):
+        return ScenePipeline(model, models, voxel_dim=V, n_votes=n_votes,
+                             native_mapping=True, size_filter=False,
+                             device=device, **kw)
+
+    # bench.py's n_votes=3; where no track spawns with it over these
+    # frames (and so ICC never runs), the phase runs at n_votes=1
+    n_votes = 3
+    pipe = make(n_votes, async_refine=True)
+    pipe.warmup((1, 2, 4, 8) if not small else (2,))
+    for _ in range(replays):
+        for _out in pipe.process_stream(iter(frames)):
+            pass
+        spawned_in_replay = len(pipe.object_mapping.spawned)
+        pipe.reset()
+    if spawned_in_replay == 0:
+        n_votes = 1
+        pipe = make(n_votes, async_refine=True)
+        for _ in range(replays):
+            for _out in pipe.process_stream(iter(frames)):
+                pass
+            pipe.reset()
+
+    # the timed pass: the main path, counted and split by stage
+    clock = HostClock()
+    pipe._prepare = clock.wrap("prepare", pipe._prepare)
+    pipe._dispatch_pose = clock.wrap("pose_dispatch", pipe._dispatch_pose)
+    pipe.pose_node.resolve = clock.wrap("pose_resolve",
+                                        pipe.pose_node.resolve)
+    timed_cls = type("Timed", (IterativeCollisionCheck,), dict(
+        refine_async=clock.wrap("icc_dispatch",
+                                IterativeCollisionCheck.refine_async),
+        resolve=clock.wrap("icc_resolve", IterativeCollisionCheck.resolve)))
+    stream = (frames[k % len(frames)] for k in range(n_timed))
+    sync(device)
+    with mock.patch.object(pipeline_module, "IterativeCollisionCheck",
+                           timed_cls):
+        for c in counts:
+            c.launches = 0
+        t0 = time.perf_counter()
+        n_results = 0
+        for out in pipe.process_stream(stream):
+            n_results += len(out)
+        pipe.flush_refine()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counts}
+    spawned = len(pipe.object_mapping.spawned)
+    refines = clock.calls.get("icc_dispatch", 0)
+    split = {k: v / n_timed for k, v in clock.ms.items()}
+    split["rest"] = wall * 1e3 / n_timed - sum(split.values())
+
+    # the card against the CPU: one synchronous pass each, deterministic
+    # (warn_only: the pose network's forward may reach an op with no
+    # deterministic CUDA version; ICC's index_add_ has one)
+    sync_frames = frames[:3] if not small else frames[:2]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, got_problems = run_sync_pass(models, sync_frames, model, device,
+                                          V, n_votes)
+        cpu_model = pipeline_model(small, V)
+        want, want_problems = run_sync_pass(models, sync_frames, cpu_model,
+                                            "cpu", V, n_votes)
+        cpu_vs_card, bad = compare_sync_passes(
+            got, want, got_problems, want_problems, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # refine_async queues the loop without a synchronising call
+    sync_calls = None
+    if device.type == "cuda" and got_problems:
+        p = got_problems[-1]
+        icc = IterativeCollisionCheck(*p["args"], **p["kw"])
+        sync(device)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                icc.refine_async()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        icc.resolve()
+        # enabling the mode itself warns that it is a prototype
+        sync_calls = [str(w.message) for w in caught
+                      if "called a synchronizing" in str(w.message)]
+
+    # with ICP: one pass over the compared frames, its knn launches counted
+    icp_pipe = make(n_votes, async_refine=True, with_icp=True)
+    for c in counts:
+        c.launches = 0
+    for _out in icp_pipe.process_stream(iter(sync_frames)):
+        pass
+    icp_pipe.flush_refine()
+    icp_launches = {c.__name__: c.launches for c in counts}
+
+    emit(dict(phase="pipeline", ok=not bad, device=str(device),
+              frame=list(frames[0]["depth"].shape),
+              objects=len(frames[0]["instance_to_class"]),
+              n_votes=n_votes,
+              n_votes_note=None if n_votes == 3 else
+              "no track spawned at n_votes=3 over these frames",
+              native_mapping=dict(built=built, build_s=build_s),
+              imports=imports, frames_s=frames_s, timed_frames=n_timed,
+              scene_pipeline_fps=n_timed / wall, wall_s=wall,
+              split_ms_per_frame=split, results=n_results,
+              spawned=spawned, refines=refines, launches=launches,
+              min_dist_per_frame=launches["min_dist_voxels"] / n_timed,
+              refine_async_sync_warnings=sync_calls,
+              card_vs_cpu=cpu_vs_card,
+              tolerance=dict(pose=PIPE_POSE_ATOL, icc_loss=ICC_LOSS_ATOL,
+                             labels_grids_spawns="identical"),
+              with_icp=dict(launches=icp_launches)))
+    check(not bad, "pipeline card vs cpu: " + "; ".join(bad))
+    check(refines > 0, "pipeline: no ICC refine ran")
+    if device.type == "cuda":
+        check(launches["min_dist_voxels"] > 0,
+              "pipeline: the min_dist kernel was never launched")
+        check(launches["min_dist_voxels"] == 30 * refines,
+              f"pipeline: {launches['min_dist_voxels']} min_dist launches "
+              f"for {refines} refines of 30 iterations")
+        check(icp_launches["nn_indices"] > 0,
+              "pipeline with ICP: the knn kernel was never launched")
+        check(not sync_calls,
+              f"refine_async synchronised: {sync_calls}")
+    return launches["min_dist_voxels"], icp_launches["nn_indices"]
 
 
 # ------------------------------------------------------------------ main
@@ -1268,14 +1705,18 @@ def main(argv=None):
     icp_launches = phase_icp(device, small, counts, icp_scene)
     if not small:
         check(icp_launches > 0, "icp: the knn kernel was never launched")
+    pipeline_launches, pipeline_icp_launches = phase_pipeline(
+        device, small, counts)
 
     kernels = [dict(
         name="min_dist", route="cuda",
         source="morefusion_tpu_torch/csrc/min_dist.cu",
         replaces="morefusion_tpu/ops/min_dist_pallas.py:60",
-        launches=icc_launches + train_launches["min_dist_voxels"],
+        launches=(icc_launches + train_launches["min_dist_voxels"]
+                  + pipeline_launches),
         launches_by_path=dict(icc_refine=icc_launches,
-                              train_5_steps=train_launches["min_dist_voxels"]),
+                              train_5_steps=train_launches["min_dist_voxels"],
+                              scene_pipeline=pipeline_launches),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -1289,10 +1730,11 @@ def main(argv=None):
         source="morefusion_tpu_torch/csrc/knn.cu",
         replaces="morefusion_tpu/ops/knn_pallas.py:36",
         launches=(train_launches["nn_indices"] + icp_launches
-                  + serving_icp_launches),
+                  + serving_icp_launches + pipeline_icp_launches),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
-                              serving_icp=serving_icp_launches),
+                              serving_icp=serving_icp_launches,
+                              scene_pipeline_icp=pipeline_icp_launches),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

@@ -9,7 +9,10 @@ loss ``penalty - reward`` with
 
 where ``grid_nontarget_empty'`` also holds the other objects' inside grids.
 Every loss evaluation builds the objects' pseudo-occupancy grids, and so
-runs the min-distance kernel once (``ops/min_dist.py``).
+runs the min-distance kernel once (``ops/min_dist.py``). The Adam loop and
+its plateau rule run on the device, as the JAX package's ``lax.scan`` does:
+``IterativeCollisionCheck.refine_async`` queues it without a read to the
+host, and ``resolve`` reads the result back once.
 """
 
 from __future__ import annotations
@@ -110,6 +113,40 @@ def _dequantize(grid):
     return grid.to(torch.float32)
 
 
+# optax.adam's defaults
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+# The plateau rule (the ROS node's LossObserver): stop after 3 iterations in
+# a row whose last 10 |loss changes| are all below 0.009. The first change is
+# taken against an infinite "last loss", so the window first holds 10 finite
+# changes at iteration 10, the rule fires at iteration 12 at the earliest,
+# and the parameters can be frozen from iteration 13 on.
+_WINDOW, _PASSES, _PLATEAU = 10, 3, 0.009
+
+
+def _adam_constants(iterations: int, device):
+    """``(decay, 1 - decay, bias)`` for the two moments, made on the device
+    (an upload would synchronise the stream): ``(2, 1, 1)``, ``(2, 1, 1)``
+    and ``(iterations, 2, 1, 1)``. ``bias[k]`` is ``1 - decay ** (k + 1)``,
+    taken in float64 as JAX takes it with x64 on, and cast to float32."""
+    decay = torch.full((2, 1, 1), _B1, dtype=torch.float64, device=device)
+    decay[1] = _B2
+    c = torch.arange(1, iterations + 1, dtype=torch.float64, device=device)
+    bias = 1.0 - decay ** c[:, None, None, None]
+    return tuple(x.to(torch.float32) for x in (decay, 1.0 - decay, bias))
+
+
+def _adam_step(state, g, decay, one_minus_decay, bias, neg_lr):
+    """One step of ``optax.adam`` (eps outside the square root,
+    ``eps_root=0``) on the packed state ``(3, ...)`` of parameters, first
+    and second moments: returns the new state. ``bias`` is ``(2, 1, 1)``,
+    the two moments' bias corrections for this step; ``neg_lr`` holds each
+    parameter's negated rate. Each operation rounds as optax's does."""
+    moments = one_minus_decay * torch.stack([g, g * g]) + decay * state[1:]
+    m_hat, v_hat = moments / bias
+    p = state[0] + neg_lr * (m_hat / (torch.sqrt(v_hat) + _EPS))
+    return torch.cat([p[None], moments])
+
+
 def refine_collision(
     quaternions,
     translations,
@@ -127,16 +164,27 @@ def refine_collision(
     sdf_offset: float = 0.0,
     iterations: int = 30,
     alpha: float = 0.01,
+    early_stop: bool = True,
     cross_mode: str = "resample",
 ):
-    """Jointly refine all object poses with Adam.
+    """Jointly refine all object poses with Adam, every iteration on the
+    device.
 
-    The translation group's rate is ``0.1 * alpha``. Early stop is the ROS
-    node's plateau rule: stop after 3 iterations in a row whose last 10 loss
-    changes are all below 0.009. Returns ``(quaternions, translations, losses, n_iter)``:
-    the best-loss iterate of the run, one loss per iteration (after the stop,
-    the loss at the frozen parameters), and the number of iterations that
-    updated the parameters. Grids may be uint8 (``/255``) or float.
+    Mirrors the JAX package's ``lax.scan``: always ``iterations`` steps, no
+    read to the host in any of them. The translation group's rate is
+    ``0.1 * alpha``. With ``early_stop``, the plateau rule freezes the
+    parameters and the Adam state from the step it fires; later steps
+    evaluate the loss at the frozen parameters. Returns ``(quaternions,
+    translations, losses, n_iter)`` as tensors on the inputs' device: the
+    best-loss iterate, one loss per iteration and the number of iterations
+    that updated the parameters (0-d int32). Grids may be uint8 (``/255``)
+    or float.
+
+    Each object's quaternion and translation are one row of 7 parameters,
+    and the Adam state is one ``(3, N, 7)`` tensor, so that a step and its
+    freeze are a few launches for all objects. Before the rule can fire the
+    loop keeps no stop flag; the iterates and losses go to buffers, and the
+    best iterate is picked once, after the loop.
     """
     device = points.device
     N = quaternions.shape[0]
@@ -144,54 +192,60 @@ def refine_collision(
         obj_mask = torch.ones((N,), dtype=torch.bool, device=device)
     grid_target = _dequantize(grid_target)
     grid_nontarget_empty = _dequantize(grid_nontarget_empty)
+    decay, one_minus_decay, bias = _adam_constants(iterations, device)
+    neg_lr = torch.full((N, 7), -alpha, device=device)
+    neg_lr[:, 4:] = -(alpha * 0.1)
 
-    q = quaternions.detach().to(torch.float32).clone().requires_grad_(True)
-    t = translations.detach().to(torch.float32).clone().requires_grad_(True)
-    # torch.optim.Adam matches optax.adam: eps outside the square root
-    opt = torch.optim.Adam(
-        [{"params": [q], "lr": alpha}, {"params": [t], "lr": alpha * 0.1}],
-        betas=(0.9, 0.999), eps=1e-8,
-    )
+    p = torch.cat([quaternions.detach(), translations.detach()], 1).to(
+        torch.float32)
+    state = torch.cat([p[None], torch.zeros((2, N, 7), device=device)])
+    iterates = torch.empty((iterations, N, 7), device=device)
+    losses = torch.empty((iterations,), device=device)
+    n_passed = stopped = n_frozen = None
+    with torch.enable_grad():
+        for i in range(iterations):
+            p = state[0]
+            iterates[i] = p
+            leaf = p.detach().requires_grad_(True)
+            q, t = leaf.split([4, 3], dim=1)
+            loss = icc_loss(
+                q, t, points, sdf, point_mask, pitch, origin, grid_target,
+                grid_nontarget_empty, obj_mask, voxel_dim=voxel_dim,
+                threshold=threshold, sdf_offset=sdf_offset,
+                cross_mode=cross_mode,
+            )
+            (g,) = torch.autograd.grad(loss, leaf)
+            losses[i] = loss.detach()
 
-    def loss_fn():
-        return icc_loss(
-            q, t, points, sdf, point_mask, pitch, origin, grid_target,
-            grid_nontarget_empty, obj_mask, voxel_dim=voxel_dim,
-            threshold=threshold, sdf_offset=sdf_offset,
-            cross_mode=cross_mode,
-        )
+            # once stopped the step is discarded, so step i's bias
+            # correction serves whether or not the count has frozen
+            new = _adam_step(state, g, decay, one_minus_decay, bias[i],
+                             neg_lr)
+            if stopped is None:
+                state = new
+            else:
+                # frozen once stopped: parameters and moments alike
+                state = torch.where(stopped, state, new)
+                n_frozen = (stopped.to(torch.int32) if n_frozen is None
+                            else n_frozen + stopped)
 
-    best_loss = math.inf
-    best_q, best_t = q.detach().clone(), t.detach().clone()
-    losses = []
-    last = math.inf
-    deltas = [math.inf] * 10
-    n_passed = 0
-    n_iter = 0
-    while len(losses) < iterations:
-        loss = loss_fn()
-        value = float(loss.detach())  # the plateau rule decides on the host
-        if value < best_loss:
-            best_loss = value
-            best_q, best_t = q.detach().clone(), t.detach().clone()
-        losses.append(value)
-        deltas = deltas[1:] + [abs(last - value)]
-        last = value
-        n_passed = n_passed + 1 if max(deltas) < 0.009 else 0
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        n_iter += 1
-        if n_passed >= 3 and len(losses) < iterations:
-            # frozen from here on: every later entry is the loss at the
-            # frozen parameters, evaluated once
-            with torch.no_grad():
-                value = float(loss_fn())
-            if value < best_loss:
-                best_loss = value
-                best_q, best_t = q.detach().clone(), t.detach().clone()
-            losses += [value] * (iterations - len(losses))
-    return best_q, best_t, torch.tensor(losses, dtype=torch.float32), n_iter
+            if early_stop and i >= _WINDOW:
+                window = losses[i - _WINDOW:i + 1]
+                passed = (window[1:] - window[:-1]).abs().amax() < _PLATEAU
+                n_passed = (passed.to(torch.int32) if n_passed is None else
+                            torch.where(passed, n_passed + 1, 0))
+                if i >= _WINDOW + _PASSES - 1:
+                    stop_now = n_passed >= _PASSES
+                    stopped = (stop_now if stopped is None
+                               else stopped | stop_now)
+    # the best iterate: the first of least loss, as JAX's `loss < best`
+    # picks it (a NaN loss never counts)
+    best = torch.where(torch.isnan(losses), math.inf, losses).argmin()
+    best_p = iterates.index_select(0, best.view(1))[0]
+    n_iter = torch.full((), iterations, dtype=torch.int32, device=device)
+    if n_frozen is not None:
+        n_iter = n_iter - n_frozen
+    return best_p[:, :4], best_p[:, 4:], losses, n_iter
 
 
 class IterativeCollisionCheck:
@@ -255,6 +309,9 @@ class IterativeCollisionCheck:
         dev = self._device
         self._q = q
         self._t = t
+        # every array goes to the device here, so that refine_async
+        # uploads nothing (a blocking upload would wait for queued work)
+        self._qt = (torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev))
         self._arrays = {
             name: torch.from_numpy(a).to(dev)
             for name, a in dict(
@@ -266,17 +323,64 @@ class IterativeCollisionCheck:
         }
         self._kw = dict(voxel_dim=voxel_dim, threshold=threshold,
                         sdf_offset=sdf_offset, cross_mode=cross_mode)
+        self._pending = None
 
-    def refine(self, iterations: int = 30, alpha: float = 0.01):
-        """Refine; returns ``(transforms (N, 4, 4), losses, n_iter)``."""
-        q, t, losses, n_iter = refine_collision(
-            torch.from_numpy(self._q).to(self._device),
-            torch.from_numpy(self._t).to(self._device),
-            **self._arrays, **self._kw, iterations=iterations, alpha=alpha,
+    def refine_async(self, iterations: int = 30, alpha: float = 0.01,
+                     early_stop: bool = True):
+        """Enqueue the refinement on the device and return without reading
+        anything back; :meth:`resolve` reads the result. The serving
+        pipeline overlaps the refine of frame k with the host work of frame
+        k+1 this way, as the reference's separate refinement node does."""
+        self._pending = refine_collision(
+            *self._qt, **self._arrays, **self._kw, iterations=iterations,
+            alpha=alpha, early_stop=early_stop,
         )
-        self._q = q.cpu().numpy()
-        self._t = t.cpu().numpy()
-        return self.transforms, losses.numpy(), n_iter
+
+    def resolve(self):
+        """Read back the pending :meth:`refine_async` in one device-to-host
+        copy; returns ``(transforms (N, 4, 4), losses, n_iter)``."""
+        q, t, losses, n_iter = self._pending
+        self._pending = None
+        self._qt = (q, t)
+        flat = torch.cat([q.reshape(-1), t.reshape(-1), losses,
+                          n_iter.to(torch.float32)[None]]).cpu().numpy()
+        nq, nt = q.numel(), t.numel()
+        self._q = flat[:nq].reshape(q.shape)
+        self._t = flat[nq:nq + nt].reshape(t.shape)
+        return self.transforms, flat[nq + nt:-1], int(flat[-1])
+
+    def refine(self, iterations: int = 30, alpha: float = 0.01,
+               early_stop: bool = True):
+        """Refine; returns ``(transforms (N, 4, 4), losses, n_iter)``."""
+        self.refine_async(iterations=iterations, alpha=alpha,
+                          early_stop=early_stop)
+        return self.resolve()
+
+    @staticmethod
+    def warmup_buckets(
+        n_objects=(1, 2, 4, 8),
+        voxel_dim: int = 32,
+        max_points: int = 2048,
+        iterations: int = 30,
+        cross_mode: str = "resample",
+        device="cuda",
+    ):
+        """Run one refine per object-count bucket, so that a serving loop's
+        first frame in a bucket pays no build or first-call cost (on the
+        card the first refine builds the kernel library)."""
+        V = voxel_dim
+        for n in n_objects:
+            IterativeCollisionCheck(
+                [np.eye(4, dtype=np.float32)] * n,
+                [np.zeros((8, 3), np.float32)] * n,
+                [np.zeros((8,), np.float32)] * n,
+                [0.01] * n,
+                [np.zeros(3, np.float32)] * n,
+                np.zeros((n, V, V, V), np.uint8),
+                np.zeros((n, V, V, V), np.uint8),
+                voxel_dim=V, max_points=max_points, cross_mode=cross_mode,
+                device=device,
+            ).refine(iterations=iterations)
 
     @property
     def transforms(self):

@@ -1,8 +1,9 @@
 """Model-bank contract of the port.
 
 Own copy of ``VoxelGrid`` and of the part of ``ModelsBase`` that training
-uses, from ``morefusion_tpu/datasets/base.py``: a model bank exposes
-per-class CAD assets (surface point cloud, solid voxel grid).
+and the scene pipeline use, from ``morefusion_tpu/datasets/base.py``: a
+model bank exposes per-class CAD assets (surface point cloud, SDF, solid
+voxel grid, voxel pitch).
 """
 
 from __future__ import annotations
@@ -40,5 +41,17 @@ class ModelsBase:
         """(N, 3) surface points of the CAD model."""
         raise NotImplementedError
 
+    def get_sdf(self, class_id):
+        """(points (N, 3), inside-positive distance (N,)) for solid points."""
+        raise NotImplementedError
+
     def get_solid_voxel_grid(self, class_id) -> VoxelGrid:
         raise NotImplementedError
+
+    def get_bbox_diagonal(self, class_id) -> float:
+        raise NotImplementedError
+
+    def get_voxel_pitch(self, dimension, class_id) -> float:
+        """Reference: ``bbox_diagonal / dimension``
+        (``morefusion/datasets/ycb_video/models.py:113-115``)."""
+        return self.get_bbox_diagonal(class_id) / dimension

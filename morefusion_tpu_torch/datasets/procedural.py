@@ -1,11 +1,11 @@
 """Procedural analytic-SDF model bank (21 YCB-like classes).
 
-Own copy of ``morefusion_tpu/datasets/procedural.py::ProceduralModels``
-without its renderer and texture, which training does not use: each class
-is a CSG composition of analytic SDF primitives with YCB-like dimensions,
-and its surface point cloud, solid voxel grid and per-point signed distances
-come from the closed-form field (``extra/sdf_primitives.py``). Nothing is
-downloaded.
+Own copy of ``morefusion_tpu/datasets/procedural.py::ProceduralModels``:
+each class is a CSG composition of analytic SDF primitives with YCB-like
+dimensions, and its surface point cloud, solid voxel grid and per-point
+signed distances come from the closed-form field
+(``extra/sdf_primitives.py``); the renderer (``extra/render.py``) reads its
+shapes, colours and cached surface samples. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -84,6 +84,21 @@ def _build_shapes():
     }
 
 
+# deterministic per-class base colors for the synthetic renderer
+_COLORS = np.array(
+    [
+        [0, 0, 0],
+        [200, 60, 60], [230, 180, 60], [240, 240, 130], [220, 70, 40],
+        [230, 200, 40], [90, 140, 220], [170, 110, 60], [220, 100, 150],
+        [120, 170, 220], [240, 220, 80], [80, 80, 200], [240, 240, 240],
+        [200, 80, 80], [80, 180, 180], [60, 160, 70], [200, 160, 110],
+        [230, 120, 40], [60, 60, 160], [110, 110, 110], [60, 60, 60],
+        [180, 60, 40],
+    ],
+    dtype=np.uint8,
+)
+
+
 class ProceduralModels(ModelsBase):
     """Analytic-SDF stand-in for ``YCBVideoModels`` (zero assets needed)."""
 
@@ -96,6 +111,22 @@ class ProceduralModels(ModelsBase):
     @property
     def class_names(self):
         return ycb_class_names
+
+    def get_shape(self, class_id):
+        return self._shapes[int(class_id)]
+
+    def get_color(self, class_id):
+        return _COLORS[int(class_id)]
+
+    @functools.lru_cache(maxsize=None)
+    def get_surface_samples(self, class_id, n_points):
+        """Cached ``(points, normals)`` surface samples for the renderer,
+        seeded with ``RandomState(class_id * 7919 + 13)``."""
+        shape = self._shapes[int(class_id)]
+        rng = np.random.RandomState(int(class_id) * 7919 + 13)
+        pts = shape.sample_surface(int(n_points), rng)
+        normals = shape.normals(pts)
+        return pts, normals
 
     @functools.lru_cache(maxsize=None)
     def get_pcd(self, class_id):
@@ -112,3 +143,10 @@ class ProceduralModels(ModelsBase):
             self._solid_dim
         )
         return VoxelGrid(points, pitch, origin, inside_distance=inside)
+
+    def get_sdf(self, class_id):
+        grid = self.get_solid_voxel_grid(class_id)
+        return grid.points, grid.inside_distance
+
+    def get_bbox_diagonal(self, class_id):
+        return self._shapes[int(class_id)].bbox_diagonal

@@ -143,7 +143,9 @@ def pseudo_occupancy_voxelization(
     batched = points.dim() == 3
     dtype, device = points.dtype, points.device
     pitch_t = torch.as_tensor(pitch, dtype=dtype, device=device)
-    truncation = torch.as_tensor(threshold, dtype=dtype, device=device) * pitch_t
+    # a Python threshold stays a scalar operand: an upload of it would
+    # synchronise the stream on every ICC iteration
+    truncation = pitch_t * threshold
 
     sdf = sdf.to(torch.float32)
     sdf_max = sdf.amax(dim=-1, keepdim=True)

@@ -38,8 +38,9 @@ def quaternion_matrix(quaternion: torch.Tensor) -> torch.Tensor:
 def compose_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """``(..., 3, 3)`` rotations and ``(..., 3)`` translations -> ``(..., 4, 4)``."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device)
+    # the last row of eye(4), made on the device: no upload, which would
+    # synchronise the stream
+    bottom = torch.eye(4, dtype=top.dtype, device=top.device)[3:]
     bottom = bottom.expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 

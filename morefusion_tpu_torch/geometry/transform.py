@@ -1,10 +1,8 @@
-"""NumPy host helpers the port needs, kept as its own copies.
+"""NumPy SE(3) helpers, quaternions ``(w, x, y, z)``.
 
-Copies of ``morefusion_tpu/geometry/bbox.py::masks_to_bboxes``, of
-``quaternion_matrix_np``, ``quaternion_from_matrix`` and
-``translation_from_matrix`` from ``morefusion_tpu/geometry/transform.py``,
-and of ``voxel_down_sample`` from ``morefusion_tpu/geometry/pointcloud.py``.
-Quaternions are ``(w, x, y, z)``.
+Own copy of ``morefusion_tpu/geometry/transform.py``: ``compose_transform``,
+``quaternion_matrix_np``, ``quaternion_from_matrix``,
+``translation_from_matrix`` and ``transform_points_np``.
 """
 
 from __future__ import annotations
@@ -12,27 +10,14 @@ from __future__ import annotations
 import numpy as np
 
 
-def masks_to_bboxes(masks: np.ndarray) -> np.ndarray:
-    """Boolean mask image(s) -> ``(y1, x1, y2, x2)`` boxes.
-
-    ``(H, W)`` -> ``(4,)``; ``(N, H, W)`` -> ``(N, 4)``. Empty masks give
-    all-zero boxes.
-    """
-    masks = np.asarray(masks)
-    if masks.dtype != bool or masks.ndim not in (2, 3):
-        raise ValueError("masks must be a bool array of 2 or 3 dimensions")
-    ndim = masks.ndim
-    if ndim == 2:
-        masks = masks[None]
-    bboxes = np.zeros((len(masks), 4), dtype=np.float64)
-    for i, mask in enumerate(masks):
-        rows = mask.any(axis=1)
-        if not rows.any():
-            continue
-        y_idx = np.flatnonzero(rows)
-        x_idx = np.flatnonzero(mask.any(axis=0))
-        bboxes[i] = y_idx[0], x_idx[0], y_idx[-1] + 1, x_idx[-1] + 1
-    return bboxes[0] if ndim == 2 else bboxes
+def compose_transform(R=None, t=None) -> np.ndarray:
+    """(R?, t?) -> 4x4 homogeneous transform (identity parts filled in)."""
+    T = np.eye(4)
+    if R is not None:
+        T[:3, :3] = R
+    if t is not None:
+        T[:3, 3] = t
+    return T
 
 
 def quaternion_matrix_np(quaternion) -> np.ndarray:
@@ -87,18 +72,8 @@ def translation_from_matrix(matrix) -> np.ndarray:
     return np.asarray(matrix, dtype=np.float64)[:3, 3].copy()
 
 
-def voxel_down_sample(points: np.ndarray, voxel_size: float) -> np.ndarray:
-    """Voxel-grid down-sampling: the mean of the points in each occupied
-    voxel, NaN rows dropped. Voxels come in ``np.unique``'s order (sorted by
-    their integer coordinates), which ICP's lowest-index tie rule sees."""
+def transform_points_np(points, transform) -> np.ndarray:
+    """Apply a single 4x4 transform to (N, 3) points (NumPy)."""
     points = np.asarray(points)
-    points = points[~np.isnan(points).any(axis=1)]
-    if len(points) == 0:
-        return points
-    coords = np.floor(points / voxel_size).astype(np.int64)
-    _, inverse, counts = np.unique(
-        coords, axis=0, return_inverse=True, return_counts=True
-    )
-    sums = np.zeros((len(counts), 3), dtype=points.dtype)
-    np.add.at(sums, inverse, points)
-    return sums / counts[:, None]
+    transform = np.asarray(transform)
+    return points @ transform[:3, :3].T + transform[:3, 3]
