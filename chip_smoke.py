@@ -5,8 +5,8 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc``, then runs nine phases, each printing one
-JSON line:
+and ``knn.cu``) with ``nvcc``, then runs ten phases, each printing one
+JSON line (with ``elapsed_s``, the seconds since the start):
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -20,7 +20,17 @@ JSON line:
    with ICP (``with_icp=True``, procedural CAD points) on the same frame,
    its knn launches counted (one per ICP iteration) and its frames timed
    (the frame's ellipsoids are no CAD shapes: this checks the wiring, not
-   accuracy);
+   accuracy); then bf16 serving: the node in bf16 on the same frame, timed
+   in turns with fp32 (its poses must differ from fp32's); the CPU test's
+   tiny model and inputs in bf16, the
+   card against the CPU within ``BF16_GAP``; the occ model at ``bench.py``'s
+   ``pose_inference_fps`` shape (B = 1, 256^2, 1000 points, 32^3) in both
+   dtypes, the card's bf16-fp32 gap over the CPU's within
+   ``BF16_GAP_RATIO``, each forward timed by CUDA events and by the host clock
+   ending in a read, and profiled (kernels a forward, the card's busy time
+   and idle share); a seeded ``pretrained_resnet18`` model in fp32, card
+   against CPU within ``PRETRAINED_ATOL``, unchanged under ``model.train()``
+   (frozen BatchNorm);
 3. ICC: ``IterativeCollisionCheck.refine`` (30 iterations, all on the
    device) on eight synthetic objects of 2048 points, against the same
    refine with the plain version in deterministic mode (losses and poses
@@ -55,6 +65,11 @@ JSON line:
    launches counted (one per iteration), timed per register by the host
    clock, ADD and ADD-S before and after; then ICC followed by ICP on the
    same objects, and the ADD(-S) AUC of the raw, +icp and +icc+icp poses;
+   and the same chain from the occ model's poses, in fp32 and in bf16, on
+   every view of phase 9's scene and of ``EXTRA_SCENE_SEEDS``' scenes, as
+   the scene pipeline's pose stage gives them (ground-truth labels fused,
+   occupancy grids from the fused map): the AUCs over all their objects,
+   bf16 within ``BF16_AUC_ATOL`` of fp32;
 9. the scene pipeline at ``bench.py``'s configuration: ``ScenePipeline``
    (fusion on the C++ mapping built with g++ into ``_build/libmfm.so``,
    tracking, the pose node with the occupancy checkpoint, object mapping,
@@ -69,16 +84,34 @@ JSON line:
    ``PIPE_POSE_ATOL``, the ICC problems equal and replayed for
    ``ICC_REPLAY_ITERATIONS`` on both, and for the pipeline's 30 within the
    CPU's own spread under a start jitter); one pass with ICP, its knn launches
-   counted; and whether cv2, scipy and sklearn import.
+   counted; whether cv2, scipy and sklearn import; and the timed pass again
+   with the model in bf16 (``bench.py``'s default), its min_dist launches
+   counted;
+10. the segmenter at ``bench.py --segmenter``'s arguments (22 classes,
+   widths 32-256, the boundary head, no depth) with seeded weights at
+   240x320: UNet logits card against CPU within ``SEG_LOGIT_ATOL`` and the
+   share of pixels whose argmax agrees; ``connected_components`` on the
+   generator's class map with its instance boundaries (also cut at
+   ``SEG_CUT_ITERS`` steps) and on the seeded UNet's own map, where both
+   propagations reach the 256-step cap, card against CPU, keys and
+   propagation steps identical; the ms of the forward, the
+   components, the relabel, the merge and a whole ``SegmentationNode``
+   call, with the steps and host reads of the components, beside the cv2
+   path's (``device_instancing=False``); and a short
+   ``process_stream`` of ``ScenePipeline(segmenter=...)`` (the bf16 pose
+   model) on frames without labels, with its split, spawns and min_dist
+   launches.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero; it also does so, printing no result, when there is
-no CUDA device. fp32 throughout, with TF32 off for convolutions and
-matrix products.
+no CUDA device. fp32 except the bf16 passes, with TF32 off for
+convolutions and matrix products; bf16 runs on PyTorch's defaults, as a
+caller of the port gets them.
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -117,6 +150,10 @@ CPU_GRAD_RTOL, CPU_GRAD_TOTAL = 1e-3, 1e-5
 ICP_POSE_ATOL = 1e-4
 # sugar box, mustard bottle, mug, foam brick (symmetric: scored by ADD-S)
 ICP_CLASSES = (3, 5, 14, 21)
+# phase 8's AUC chain from the model's poses: phase 9's scene and the scenes
+# of these seeds, every view; bf16's AUCs within this of fp32's
+EXTRA_SCENE_SEEDS = (2, 3)
+BF16_AUC_ATOL = 0.01
 # scene pipeline, card against CPU (phase 9): poses as the JAX parity tests
 # hold them; the ICC problems replayed for 5 iterations and held as
 # tests/test_torch_icc.py holds the refiner to JAX. Over the pipeline's 30
@@ -130,6 +167,26 @@ ICC_LOSS_ATOL = 1e-5
 ICC_REPLAY_ITERATIONS = 5
 ICC_PIPELINE_ITERATIONS = 30
 ICC_START_JITTER, ICC_JITTER_RUNS = 1e-7, 3
+# bf16 serving (phase 2): the gap between JAX's bf16 and JAX's fp32 per
+# output (quaternion, translation in m, confidence), measured on the CPU by
+# tests/test_torch_bf16.py::test_bf16_within_jax_bf16_gap[occ] on its inputs
+# (a tiny SingleView3D, rebuilt here from the same seeds). On those inputs
+# the card's bf16 must be no farther from the CPU's bf16 than that
+BF16_GAP = (3.3248066902160645e-3, 6.854534149169922e-06,
+            1.2865662574768066e-4)
+# at bench.py's shape, the card's bf16-fp32 gap over the CPU's, per output:
+# two bf16 implementations, each its own rounding of one fp32 result. Read
+# 1.07 / 0.99 / 1.01 on an H100 (PERF.md, PR 9); held within 1.3x either
+# way. The lower bound fails a card run that never computed in bf16
+BF16_GAP_RATIO = (1 / 1.3, 1.3)
+# the pretrained-ResNet18 model, card against CPU in fp32, per output
+PRETRAINED_ATOL = 1e-4
+# the segmenter (phase 10): bench.py's arguments; UNet logits card vs CPU
+SEG_N_CLASS, SEG_WIDTHS = 22, (32, 64, 128, 256)
+SEG_LOGIT_ATOL = 1e-4
+# the components cut by max_iters (phase 10): inside a chunk of host reads,
+# before the generator's map converges (4 + 3 steps at 240x320)
+SEG_CUT_ITERS = 2
 
 
 class CheckFailed(RuntimeError):
@@ -141,7 +198,14 @@ def check(ok, what):
         raise CheckFailed(what)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -358,17 +422,253 @@ def make_frame(seed, H=480, W=640, n_obj=4):
     return rgb.astype(np.uint8), pcd, label
 
 
-def serving_model(small, seed):
+@functools.lru_cache(maxsize=1)
+def checkpoint_state():
+    from morefusion_tpu_torch import models
+
+    return models.params_from_jax(models.load_jax_npz(CHECKPOINT))
+
+
+def serving_model(small, seed, compute_dtype=torch.float32):
+    """The occ checkpoint at full width (a seeded tiny model in the
+    rehearsal), computing in ``compute_dtype``."""
     from morefusion_tpu_torch import models
 
     if small:
         torch.manual_seed(seed)
-        return models.tiny_singleview3d(21, n_point=64, with_occupancy=True)
-    model = models.SingleView3D(n_fg_class=21, n_point=1000,
-                                with_occupancy=True)
-    model.load_state_dict(models.params_from_jax(
-        models.load_jax_npz(CHECKPOINT)), strict=True)
+        state = models.tiny_singleview3d(
+            21, n_point=64, with_occupancy=True).state_dict()
+        model = models.tiny_singleview3d(21, n_point=64, with_occupancy=True,
+                                         compute_dtype=compute_dtype)
+    else:
+        state = checkpoint_state()
+        model = models.SingleView3D(n_fg_class=21, n_point=1000,
+                                    with_occupancy=True,
+                                    compute_dtype=compute_dtype)
+    model.load_state_dict(state, strict=True)
     return model
+
+
+def max_gaps(a, b):
+    """Largest difference of each output (quaternion, translation,
+    confidence)."""
+    return [float((x.double().cpu() - y.double().cpu()).abs().max())
+            for x, y in zip(a, b)]
+
+
+def bf16_test_inputs():
+    """The inputs of tests/test_torch_bf16.py::test_bf16_within_jax_bf16_gap
+    [occ] (``_inputs`` of tests/test_torch_model.py under RandomState(0),
+    B = 2, 80^2, 32 points), copied: this script imports no test."""
+    rng = np.random.RandomState(0)
+    B, S, P, V = 2, 80, 32, 32
+    rgb = rng.uniform(0, 255, (B, S, S, 3)).astype(np.float32)
+    pcd = rng.uniform(-0.1, 0.1, (B, S, S, 3)).astype(np.float32)
+    pcd[..., 2] += 0.8
+    pcd[:, : S // 8] = np.nan
+    mask = ~np.isnan(pcd).any(-1)
+    idx = np.stack([rng.choice(np.flatnonzero(mask[b].ravel()), P,
+                               replace=False) for b in range(B)])
+    return dict(
+        class_id=(np.arange(B) % 5 + 1).astype(np.int32), rgb=rgb, pcd=pcd,
+        pitch=rng.uniform(0.006, 0.012, B).astype(np.float32),
+        grid_nontarget_empty=rng.rand(B, V, V, V).astype(np.float32),
+        sample_indices=idx.astype(np.int32))
+
+
+def bench_fps_inputs(small):
+    """``bench.py``'s ``pose_inference_fps`` inputs (``bench.py:288-301``)
+    at B = 1: 256^2 (64^2 in the rehearsal), the top fifth of the cloud
+    NaN, 32^3 grid."""
+    B, H, W = 1, (256 if not small else 64), (256 if not small else 64)
+    rng = np.random.RandomState(0)
+    rgb = rng.randint(0, 255, (B, H, W, 3)).astype(np.float32)
+    pcd = rng.uniform(0.3, 0.8, (B, H, W, 3)).astype(np.float32)
+    pcd[:, : H // 5] = np.nan
+    return dict(
+        rgb=rgb, pcd=pcd,
+        class_id=rng.randint(1, 22, (B,)).astype(np.int32),
+        pitch=np.full((B,), 0.0075, np.float32),
+        grid_nontarget_empty=rng.uniform(0, 1, (B, 32, 32, 32)).astype(
+            np.float32))
+
+
+def on(kw, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in kw.items()}
+
+
+def forward_timing(model, kw, device, reps):
+    """The forward on device-resident inputs as ``bench.py`` times it: by
+    the host clock over ``reps`` calls ending in one read of the result,
+    and on the card by CUDA events. Pixels drawn by a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(1234)
+
+    def fwd():
+        return model(**kw, generator=gen)
+
+    with torch.inference_mode():
+        ms = cuda_ms(fwd, reps) if device.type == "cuda" else None
+        fwd()[2].cpu()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fwd()
+        out[2].cpu()
+        wall = time.perf_counter() - t0
+    B = kw["rgb"].shape[0]
+    return dict(cuda_ms=ms, host_ms=wall * 1e3 / reps,
+                pose_inference_fps=reps * B / wall)
+
+
+def busy_ms(intervals):
+    """Total length (ms) of the union of ``(start, end)`` intervals in us."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total * 1e-3
+
+
+def profile_calls(fn, device, reps=10):
+    """``reps`` calls of ``fn`` under ``torch.profiler`` on the card, after
+    one unprofiled call: the kernels each launches, the card's busy time
+    (the union of its kernels) and the host-clock wall per call, and the
+    share of the wall the card idles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms((e.time_range.start, e.time_range.end)
+                   for e in kernels) / reps
+    return dict(kernels_per_call=len(kernels) / reps, card_busy_ms=busy,
+                wall_ms=wall, idle_share=1.0 - busy / wall)
+
+
+def randomize_batch_stats(model, seed):
+    """BatchNorm statistics and affine parameters that are not the
+    identity (``randomize_batch_stats`` of tests/test_torch_bf16.py)."""
+    from morefusion_tpu_torch.models.layers import FrozenBatchNorm2d
+
+    g = np.random.RandomState(seed)
+    for mod in model.modules():
+        if isinstance(mod, FrozenBatchNorm2d):
+            c = mod.running_mean.shape[0]
+            for t, lo, hi in ((mod.weight, 0.5, 1.5), (mod.bias, -0.1, 0.1),
+                              (mod.running_mean, -0.1, 0.1),
+                              (mod.running_var, 0.5, 1.5)):
+                t.data.copy_(torch.from_numpy(
+                    g.uniform(lo, hi, c).astype(np.float32)))
+    return model
+
+
+def bf16_serving(device, small):
+    """bf16 against fp32 and the card against the CPU: the tiny model on
+    the CPU test's inputs (within ``BF16_GAP``), the occ model at
+    ``bench.py``'s shape (the card's bf16-fp32 gap within
+    ``BF16_GAP_RATIO`` of the CPU's; both forwards timed),
+    and a seeded
+    ``pretrained_resnet18`` model in fp32, its BatchNorm frozen under
+    ``model.train()``."""
+    from morefusion_tpu_torch import models
+    from morefusion_tpu_torch.models.sampling import sample_mask_indices
+
+    out = {}
+    # (a) the CPU test's tiny model and inputs
+    torch.manual_seed(0)
+    state = models.tiny_singleview3d(5, n_point=32,
+                                     with_occupancy=True).state_dict()
+    tiny = models.tiny_singleview3d(5, n_point=32, with_occupancy=True,
+                                    compute_dtype=torch.bfloat16)
+    tiny.load_state_dict(state, strict=True)
+    kw = bf16_test_inputs()
+    with torch.inference_mode():
+        want = tiny.eval()(**on(kw, "cpu"))
+        got = tiny.to(device)(**on(kw, device))
+    err = max_gaps(got, want)
+    check(all(g.dtype == torch.float32 for g in got),
+          "bf16: the model's outputs are not fp32")
+    check(all(e <= b for e, b in zip(err, BF16_GAP)),
+          f"bf16: card vs CPU {err} beyond the JAX bf16-fp32 gap {BF16_GAP}")
+    out["test_inputs"] = dict(card_vs_cpu=err, tolerance=list(BF16_GAP))
+
+    # (b) the occ model at bench.py's pose_inference_fps shape
+    kw = bench_fps_inputs(small)
+    mask = ~torch.from_numpy(np.isnan(kw["pcd"]).any(-1))
+    fp32, bf16 = (serving_model(small, 3, dt).to(device).eval()
+                  for dt in (torch.float32, torch.bfloat16))
+    idx = sample_mask_indices(mask, fp32.n_point,
+                              torch.Generator().manual_seed(0))
+    fixed = dict(kw, sample_indices=idx.numpy())
+    with torch.inference_mode():
+        o32 = fp32(**on(fixed, device))
+        o16 = bf16(**on(fixed, device))
+        cpu32, cpu16 = (serving_model(small, 3, dt).eval()(
+            **on(fixed, "cpu")) for dt in (torch.float32, torch.bfloat16))
+    gap, cpu_gap = max_gaps(o16, o32), max_gaps(cpu16, cpu32)
+    err = max_gaps(o16, cpu16)
+    check(all(np.isfinite(o.cpu().numpy()).all() for o in o16),
+          "bf16: non-finite outputs")
+    lo, hi = BF16_GAP_RATIO
+    ratio = [g / c for g, c in zip(gap, cpu_gap)]
+    check(all(lo <= r <= hi for r in ratio),
+          f"bf16 at bench.py's shape: the card's bf16-fp32 gap {gap}, the "
+          f"CPU's {cpu_gap}, ratio {ratio} outside {BF16_GAP_RATIO}")
+    reps = 30 if not small else 2
+    dev_kw = on(kw, device)
+    timing = {name: forward_timing(m, dev_kw, device, reps)
+              for name, m in (("fp32", fp32), ("bf16", bf16), ("fp32_again",
+                                                                fp32),
+                              ("bf16_again", bf16))}
+    gen = torch.Generator(device=device).manual_seed(1234)
+    profiled = ({name: profile_calls(
+        lambda m=m: m(**dev_kw, generator=gen), device)
+        for name, m in (("fp32", fp32), ("bf16", bf16))}
+        if device.type == "cuda" else None)
+    out["bench_shape"] = dict(
+        B=1, crop=list(kw["rgb"].shape[1:3]), n_point=fp32.n_point,
+        bf16_vs_fp32=gap, cpu_bf16_vs_fp32=cpu_gap, gap_ratio=ratio,
+        card_vs_cpu_bf16=err, card_vs_cpu_fp32=max_gaps(o32, cpu32),
+        tolerance=dict(gap_ratio=list(BF16_GAP_RATIO)), timing=timing,
+        reps=reps, profile=profiled)
+    del fp32, o32, o16, cpu32, cpu16
+
+    # (c) the pretrained backbone, fp32, card against CPU
+    torch.manual_seed(11)
+    if small:
+        pre = models.tiny_singleview3d(21, n_point=64, with_occupancy=True,
+                                       pretrained_resnet18=True)
+    else:
+        pre = models.SingleView3D(n_fg_class=21, with_occupancy=True,
+                                  pretrained_resnet18=True)
+    randomize_batch_stats(pre, 12)
+    with torch.inference_mode():
+        want = pre.eval()(**on(fixed, "cpu"))
+        pre.to(device)
+        got = pre(**on(fixed, device))
+        trained = pre.train()(**on(fixed, device))
+    err = max_gaps(got, want)
+    check(max(err) <= PRETRAINED_ATOL,
+          f"pretrained_resnet18: card vs CPU {err}")
+    check(all(torch.equal(a, b) for a, b in zip(got, trained)),
+          "pretrained_resnet18: model.train() changed the frozen BatchNorm")
+    out["pretrained_resnet18"] = dict(card_vs_cpu_fp32=err,
+                                      tolerance=PRETRAINED_ATOL,
+                                      train_mode_equal=True)
+    return out
 
 
 def phase_serving(device, small, counts):
@@ -466,6 +766,30 @@ def phase_serving(device, small, counts):
         icp_node.estimate(*args)
     sync(device)
     icp_ms = (time.perf_counter() - t0) / icp_reps * 1e3
+
+    # the node in bf16 on the same frame and pixels, then timed
+    node16 = PoseEstimationNode(serving_model(small, 3, torch.bfloat16),
+                                voxel_pitch, image_size=S, device=device)
+    got16 = node16.estimate(*args, sample_indices=sample_indices)
+    check(sorted(got16) == sorted(ids)
+          and all(np.isfinite(got16[i]["T_cad2cam"]).all() for i in ids),
+          "serving in bf16: bad poses")
+    bf16_pose_gap = max(float(np.abs(got16[i]["T_cad2cam"]
+                                     - got[i]["T_cad2cam"]).max())
+                        for i in ids)
+    check(bf16_pose_gap > 0,
+          "serving in bf16: the poses equal fp32's bit for bit")
+    node_ms = {}
+    for name, n in (("fp32", node), ("bf16", node16), ("fp32_again", node),
+                    ("bf16_again", node16)):
+        n.estimate(*args)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            n.estimate(*args)
+        sync(device)
+        node_ms[name] = (time.perf_counter() - t0) / reps * 1e3
+    del node16
     emit(dict(phase="serving", ok=True, device=str(device),
               frame=[H, W], instances=len(ids), crop=S, n_point=n_point,
               max_pose_err=pose_err, max_conf_err=conf_err,
@@ -473,7 +797,10 @@ def phase_serving(device, small, counts):
               launches=launches, estimate_ms=ms, frames=reps,
               with_icp=dict(icp_iterations=icp_iterations,
                             launches=icp_launches, estimate_ms=icp_ms,
-                            frames=icp_reps)))
+                            frames=icp_reps),
+              bf16=dict(node_pose_vs_fp32=bf16_pose_gap,
+                        estimate_ms_in_turns=node_ms,
+                        **bf16_serving(device, small))))
     return icp_launches["nn_indices"]
 
 
@@ -1157,27 +1484,117 @@ def icc_for_scene(scene, device, V=32, max_points=2048):
         device=device)
 
 
-def phase_icp(device, small, counts, scene):
-    from morefusion_tpu_torch import metrics
+def register_all(scene, T_start, dev):
+    """``ICPRegistration.register`` on each object from ``T_start``: the
+    pose, the iterations and the host ms of each."""
     from morefusion_tpu_torch.contrib import ICPRegistration
+
+    out = []
+    for obj, T in zip(scene, T_start):
+        reg = ICPRegistration(obj["depth"], obj["cad"], T, device=dev)
+        t0 = time.perf_counter()
+        T_icp = reg.register()
+        out.append((T_icp, reg.last_n_iterations,
+                    (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def refinement_chain(scene, device, small, got):
+    """ADD(-S) errors and AUC of the start poses (raw), of ICP from them
+    (``got``), of ICC from them and of ICP after ICC (the rehearsal's ICC at
+    a 16^3 grid of 256 points an object)."""
+    from morefusion_tpu_torch import metrics
+
+    icc = (icc_for_scene(scene, device) if not small else
+           icc_for_scene(scene, device, V=16, max_points=256))
+    T_icc, icc_losses, icc_n = icc.refine(iterations=30)
+    got_icc = register_all(scene, T_icc, device)
+    errors = dict(
+        raw=add_errors(scene, [obj["T_init"] for obj in scene]),
+        icp=add_errors(scene, [T for T, _, _ in got]),
+        icc=add_errors(scene, T_icc),
+        icc_icp=add_errors(scene, [T for T, _, _ in got_icc]))
+    auc = {k: float(metrics.ycb_video_add_auc(np.asarray(v["add_or_add_s"])))
+           for k, v in errors.items()}
+    mean_add = {k: float(np.mean(v["add"])) for k, v in errors.items()}
+    return dict(icc=dict(n_iter=icc_n, first_loss=float(icc_losses[0]),
+                         best_loss=float(min(icc_losses))),
+                icc_icp_n_iterations=[n for _, n, _ in got_icc],
+                errors=errors, mean_add=mean_add, add_auc=auc)
+
+
+def model_scenes(scenes, models, model, device, V):
+    """Every view's objects as the scene pipeline's pose stage sees them:
+    a fresh ``ScenePipeline`` a scene, each view's ground-truth labels
+    fused and the pose node fed the fused map's occupancy grids (no ICC).
+    Each object: its class, its observed points in the camera frame, its CAD
+    points, the generator's pose of the instance it overlaps most, and the
+    node's pose as the start."""
+    from morefusion_tpu_torch.runtime import ScenePipeline
+
+    views = []
+    for frames in scenes:
+        pipe = ScenePipeline(model, models, voxel_dim=V, native_mapping=True,
+                             size_filter=False, device=device)
+        for f in frames:
+            ctx = pipe._prepare(f["rgb"], f["depth"], f["K"],
+                                f["T_cam2world"], f["instance_label"],
+                                f["instance_to_class"])
+            poses = pipe._finish(ctx, pipe._dispatch_pose(ctx), refine=False)
+            pcd, label = ctx["pcd_cam"], ctx["label"]
+            finite = ~np.isnan(pcd).any(axis=2)
+            view = []
+            for ins, res in sorted(poses.items()):
+                mask = label == ins
+                gt, n = np.unique(f["instance_label"][mask],
+                                  return_counts=True)
+                n, gt = n[gt >= 0], gt[gt >= 0]
+                check(len(gt) > 0, f"icp: fused instance {ins} covers no "
+                                   f"instance of the generator")
+                true_ins = int(gt[np.argmax(n)])
+                check(f["instance_to_class"][true_ins] == res["class_id"],
+                      f"icp: fused instance {ins} of class {res['class_id']} "
+                      f"overlaps instance {true_ins} of another class")
+                view.append(dict(class_id=res["class_id"],
+                                 cad=models.get_pcd(res["class_id"]),
+                                 depth=pcd[mask & finite].astype(np.float64),
+                                 T_true=f["poses_cad2cam"][true_ins],
+                                 T_init=res["T_cad2cam"]))
+            views.append(view)
+    return views
+
+
+def model_chain(views, device, small):
+    """``refinement_chain`` on each view; the ADD(-S) AUCs and mean ADDs
+    over all the views' objects."""
+    from morefusion_tpu_torch import metrics
+
+    pooled = {}
+    for view in filter(None, views):
+        got = register_all(view, [o["T_init"] for o in view], device)
+        chain = refinement_chain(view, device, small, got)
+        for k, e in chain["errors"].items():
+            for m, v in e.items():
+                pooled.setdefault(k, {}).setdefault(m, []).extend(v)
+    return dict(objects=sum(len(v) for v in views),
+                objects_per_view=[len(v) for v in views],
+                classes=[o["class_id"] for v in views for o in v],
+                add_auc={k: float(metrics.ycb_video_add_auc(
+                    np.asarray(v["add_or_add_s"])))
+                    for k, v in pooled.items()},
+                mean_add={k: float(np.mean(v["add"]))
+                          for k, v in pooled.items()})
+
+
+def phase_icp(device, small, counts, scene, models, model_scenes_frames):
     from morefusion_tpu_torch.contrib import icp
 
-    def register(T_start, dev):
-        out = []
-        for obj, T in zip(scene, T_start):
-            reg = ICPRegistration(obj["depth"], obj["cad"], T, device=dev)
-            t0 = time.perf_counter()
-            T_icp = reg.register()
-            out.append((T_icp, reg.last_n_iterations,
-                        (time.perf_counter() - t0) * 1e3))
-        return out
-
     T_init = [obj["T_init"] for obj in scene]
-    register(T_init, device)  # warm-up
+    register_all(scene, T_init, device)  # warm-up
     # the main path, counted
     for c in counts:
         c.launches = 0
-    got = register(T_init, device)
+    got = register_all(scene, T_init, device)
     launches = {c.__name__: c.launches for c in counts}
     n_iter = [n for _, n, _ in got]
     if device.type == "cuda":
@@ -1187,7 +1604,7 @@ def phase_icp(device, small, counts, scene):
     check(all(np.isfinite(T).all() for T, _, _ in got), "icp: bad poses")
 
     # the card against the CPU, from the same start poses
-    want = register(T_init, "cpu")
+    want = register_all(scene, T_init, "cpu")
     pose_err = max(float(np.abs(a[0] - b[0]).max())
                    for a, b in zip(got, want))
     check([n for _, n, _ in want] == n_iter,
@@ -1215,21 +1632,36 @@ def phase_icp(device, small, counts, scene):
         timing[name] = (time.perf_counter() - t0) / 3 * 1e3 / n0
 
     # ICC, then ICP from its poses
-    # (the rehearsal at a 16^3 grid of 256 points an object)
-    icc = (icc_for_scene(scene, device) if not small else
-           icc_for_scene(scene, device, V=16, max_points=256))
-    T_icc, icc_losses, icc_n = icc.refine(iterations=30)
-    got_icc = register(T_icc, device)
-    errors = dict(
-        raw=add_errors(scene, T_init),
-        icp=add_errors(scene, [T for T, _, _ in got]),
-        icc=add_errors(scene, T_icc),
-        icc_icp=add_errors(scene, [T for T, _, _ in got_icc]))
-    auc = {k: float(metrics.ycb_video_add_auc(np.asarray(v["add_or_add_s"])))
-           for k, v in errors.items()}
-    mean_add = {k: float(np.mean(v["add"])) for k, v in errors.items()}
+    chain = refinement_chain(scene, device, small, got)
+    mean_add = chain["mean_add"]
     check(mean_add["icp"] < mean_add["raw"],
           f"icp: mean ADD {mean_add['icp']} after, {mean_add['raw']} before")
+
+    # the same chain from the occ model's poses on rendered views, in fp32
+    # and in bf16: bf16's accuracy beside fp32's
+    t0 = time.perf_counter()
+    V = 32 if not small else 16
+    model_chains = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        views = model_scenes(model_scenes_frames, models,
+                             pipeline_model(small, V, dt), device, V)
+        mc = model_chain(views, device, small)
+        check(mc["objects"] > 0, f"icp: no pose on the views in {name}")
+        check(all(np.isfinite(list(mc["add_auc"].values()))),
+              f"icp: AUC of the model's {name} poses not finite")
+        model_chains[name] = mc
+    check(model_chains["fp32"]["classes"] == model_chains["bf16"]["classes"],
+          "icp: the fp32 and bf16 passes scored other objects")
+    auc_gap = {k: abs(model_chains["bf16"]["add_auc"][k] - v)
+               for k, v in model_chains["fp32"]["add_auc"].items()}
+    # held on the occ checkpoint; the rehearsal's seeded tiny model is no
+    # trained model, its bf16 poses scatter
+    check(small or all(g <= BF16_AUC_ATOL for g in auc_gap.values()),
+          f"icp: bf16's AUCs {auc_gap} from fp32's, beyond {BF16_AUC_ATOL}")
+    model_chains.update(scenes=len(model_scenes_frames),
+                        views=sum(len(f) for f in model_scenes_frames),
+                        bf16_auc_gap=auc_gap, tolerance=BF16_AUC_ATOL,
+                        seconds=time.perf_counter() - t0)
     register_ms = [ms for _, _, ms in got]
     emit(dict(phase="icp", ok=True, device=str(device),
               classes=list(ICP_CLASSES),
@@ -1240,11 +1672,8 @@ def phase_icp(device, small, counts, scene):
               tolerance=dict(pose=ICP_POSE_ATOL, n_iterations="equal"),
               register_ms=register_ms,
               ms_per_iteration=sum(register_ms) / sum(n_iter),
-              first_object_ms_per_iteration=timing,
-              icc=dict(n_iter=icc_n, first_loss=float(icc_losses[0]),
-                       best_loss=float(min(icc_losses))),
-              icc_icp_n_iterations=[n for _, n, _ in got_icc],
-              errors=errors, mean_add=mean_add, add_auc=auc))
+              first_object_ms_per_iteration=timing, **chain,
+              model_poses=model_chains))
     return launches["nn_indices"]
 
 
@@ -1259,18 +1688,19 @@ def importable(name):
     return True
 
 
-def pipeline_frames(small):
+def pipeline_frames(small, seed=1):
     """``bench.py``'s pipeline scene: 4 procedural objects on a plane from
-    ``RandomState(1)``, 3 views of a 5-keypoint camera path, rendered at
+    ``RandomState(seed)`` (1 in ``bench.py``), 3 views of a 5-keypoint camera path, rendered at
     240x320 with 20,000 points an object (2 objects at 120x160 and 6000
-    points in the rehearsal), as stream frames with ground-truth labels."""
+    points in the rehearsal), as stream frames with ground-truth labels and
+    each instance's true pose in the camera frame."""
     from morefusion_tpu_torch.datasets import ProceduralModels
     from morefusion_tpu_torch.simulation import PlaneTypeSceneGeneration
 
     shape, n_points = ((240, 320), 20000) if not small else ((120, 160), 6000)
     models = ProceduralModels()
     gen = PlaneTypeSceneGeneration(models, n_object=4 if not small else 2,
-                                   random_state=np.random.RandomState(1))
+                                   random_state=np.random.RandomState(seed))
     gen.generate()
     traj = gen.random_camera_trajectory(5, 3)
     frames = []
@@ -1281,18 +1711,21 @@ def pipeline_frames(small):
             K=f["intrinsic_matrix"], T_cam2world=f["T_cam2world"],
             instance_label=f["instance_label"],
             instance_to_class={int(i): int(f["class_ids"][k])
-                               for k, i in enumerate(f["instance_ids"])}))
+                               for k, i in enumerate(f["instance_ids"])},
+            poses_cad2cam={int(i): f["Ts_cad2cam"][k]
+                           for k, i in enumerate(f["instance_ids"])}))
     return models, frames
 
 
-def pipeline_model(small, voxel_dim):
+def pipeline_model(small, voxel_dim, compute_dtype=torch.float32):
     from morefusion_tpu_torch import models
 
     if small:
         torch.manual_seed(7)
         return models.tiny_singleview3d(21, n_point=64, with_occupancy=True,
-                                        voxel_dim=voxel_dim)
-    return serving_model(small, seed=7)
+                                        voxel_dim=voxel_dim,
+                                        compute_dtype=compute_dtype)
+    return serving_model(small, seed=7, compute_dtype=compute_dtype)
 
 
 def fixed_draw(node, seed=1234):
@@ -1509,74 +1942,113 @@ def compare_sync_passes(got, want, got_problems, want_problems, device):
     return numbers, bad
 
 
-def phase_pipeline(device, small, counts):
+def timed_stream(pipe, frames, counts, device, n_timed, segment=False):
+    """``process_stream`` over ``n_timed`` frames (the frames in turn),
+    ending in ``flush_refine``: fps, the host ms per frame of each stage
+    (with ``segment``, the segmenter's share taken out of ``prepare``), the
+    kernels' launches, refines and spawns."""
     from morefusion_tpu_torch.contrib import IterativeCollisionCheck
-    from morefusion_tpu_torch.contrib import mapping_native
-    from morefusion_tpu_torch.runtime import ScenePipeline
     from morefusion_tpu_torch.runtime import pipeline as pipeline_module
 
-    imports = {name: importable(name) for name in ("cv2", "scipy", "sklearn")}
-    built = mapping_native.stale()
-    build_s = mapping_native.build() if built else None
-    mapping_native.load_library()
-    t0 = time.perf_counter()
-    models, frames = pipeline_frames(small)
-    frames_s = time.perf_counter() - t0
-    V = 32 if not small else 16
-    model = pipeline_model(small, V)
-    n_timed = 12 if not small else 2
-    replays = 2 if not small else 1
-
-    def make(n_votes, **kw):
-        return ScenePipeline(model, models, voxel_dim=V, n_votes=n_votes,
-                             native_mapping=True, size_filter=False,
-                             device=device, **kw)
-
-    # bench.py's n_votes=3; where no track spawns with it over these
-    # frames (and so ICC never runs), the phase runs at n_votes=1
-    n_votes = 3
-    pipe = make(n_votes, async_refine=True)
-    pipe.warmup((1, 2, 4, 8) if not small else (2,))
-    for _ in range(replays):
-        for _out in pipe.process_stream(iter(frames)):
-            pass
-        spawned_in_replay = len(pipe.object_mapping.spawned)
-        pipe.reset()
-    if spawned_in_replay == 0:
-        n_votes = 1
-        pipe = make(n_votes, async_refine=True)
-        for _ in range(replays):
-            for _out in pipe.process_stream(iter(frames)):
-                pass
-            pipe.reset()
-
-    # the timed pass: the main path, counted and split by stage
     clock = HostClock()
+    saved = {k: getattr(pipe, k) for k in ("_prepare", "_dispatch_pose",
+                                           "_segmenter")}
     pipe._prepare = clock.wrap("prepare", pipe._prepare)
     pipe._dispatch_pose = clock.wrap("pose_dispatch", pipe._dispatch_pose)
-    pipe.pose_node.resolve = clock.wrap("pose_resolve",
-                                        pipe.pose_node.resolve)
+    if segment:
+        pipe._segmenter = clock.wrap("segment", pipe._segmenter)
+    resolve = pipe.pose_node.resolve
+    pipe.pose_node.resolve = clock.wrap("pose_resolve", resolve)
     timed_cls = type("Timed", (IterativeCollisionCheck,), dict(
         refine_async=clock.wrap("icc_dispatch",
                                 IterativeCollisionCheck.refine_async),
         resolve=clock.wrap("icc_resolve", IterativeCollisionCheck.resolve)))
     stream = (frames[k % len(frames)] for k in range(n_timed))
     sync(device)
-    with mock.patch.object(pipeline_module, "IterativeCollisionCheck",
-                           timed_cls):
-        for c in counts:
-            c.launches = 0
-        t0 = time.perf_counter()
-        n_results = 0
-        for out in pipe.process_stream(stream):
-            n_results += len(out)
-        pipe.flush_refine()
-        wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counts}
-    spawned = len(pipe.object_mapping.spawned)
-    refines = clock.calls.get("icc_dispatch", 0)
+    try:
+        with mock.patch.object(pipeline_module, "IterativeCollisionCheck",
+                               timed_cls):
+            for c in counts:
+                c.launches = 0
+            t0 = time.perf_counter()
+            n_results = 0
+            for out in pipe.process_stream(stream):
+                n_results += len(out)
+            pipe.flush_refine()
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counts}
+    finally:
+        for k, v in saved.items():
+            setattr(pipe, k, v)
+        pipe.pose_node.resolve = resolve
     split = {k: v / n_timed for k, v in clock.ms.items()}
+    if segment:
+        split["prepare"] -= split["segment"]
     split["rest"] = wall * 1e3 / n_timed - sum(split.values())
+    return dict(scene_pipeline_fps=n_timed / wall, wall_s=wall,
+                timed_frames=n_timed, split_ms_per_frame=split,
+                results=n_results, spawned=len(pipe.object_mapping.spawned),
+                refines=clock.calls.get("icc_dispatch", 0),
+                launches=launches,
+                min_dist_per_frame=launches["min_dist_voxels"] / n_timed)
+
+
+def warm_pipeline(make, frames, replays, warmup_buckets=None):
+    """bench.py's n_votes=3 pipeline, warmed up and replayed; where no
+    track spawns at n_votes=3 over these frames (and so ICC never runs),
+    the same at n_votes=1. Returns the pipeline and its n_votes."""
+    for n_votes in (3, 1):
+        pipe = make(n_votes)
+        if warmup_buckets:
+            pipe.warmup(warmup_buckets)
+        for _ in range(replays):
+            for _out in pipe.process_stream(iter(frames)):
+                pass
+            spawned = len(pipe.object_mapping.spawned)
+            pipe.reset()
+        if spawned:
+            break
+    return pipe, n_votes
+
+
+def check_timed_pass(run, what, device):
+    check(run["refines"] > 0, f"{what}: no ICC refine ran")
+    if device.type == "cuda":
+        n = run["launches"]["min_dist_voxels"]
+        check(n > 0, f"{what}: the min_dist kernel was never launched")
+        check(n == 30 * run["refines"],
+              f"{what}: {n} min_dist launches for {run['refines']} refines "
+              f"of 30 iterations")
+
+
+def phase_pipeline(device, small, counts, models, frames, frames_s,
+                   native_build):
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+    from morefusion_tpu_torch.runtime import ScenePipeline
+
+    imports = {name: importable(name) for name in ("cv2", "scipy", "sklearn")}
+    V = 32 if not small else 16
+    model = pipeline_model(small, V)
+    n_timed = 12 if not small else 2
+    replays = 2 if not small else 1
+
+    def make(n_votes, pose_model=model, **kw):
+        return ScenePipeline(pose_model, models, voxel_dim=V,
+                             n_votes=n_votes, native_mapping=True,
+                             size_filter=False, device=device, **kw)
+
+    pipe, n_votes = warm_pipeline(
+        lambda n: make(n, async_refine=True), frames, replays,
+        (1, 2, 4, 8) if not small else (2,))
+    # the timed pass: the main path, counted and split by stage
+    run = timed_stream(pipe, frames, counts, device, n_timed)
+    # bench.py's default: the same pass with the model in bf16
+    model16 = pipeline_model(small, V, torch.bfloat16)
+    pipe16, n_votes16 = warm_pipeline(
+        lambda n: make(n, pose_model=model16, async_refine=True), frames,
+        replays)
+    run16 = timed_stream(pipe16, frames, counts, device, n_timed)
+    del pipe16
 
     # the card against the CPU: one synchronous pass each, deterministic
     # (warn_only: the pose network's forward may reach an op with no
@@ -1627,30 +2099,208 @@ def phase_pipeline(device, small, counts):
               n_votes=n_votes,
               n_votes_note=None if n_votes == 3 else
               "no track spawned at n_votes=3 over these frames",
-              native_mapping=dict(built=built, build_s=build_s),
-              imports=imports, frames_s=frames_s, timed_frames=n_timed,
-              scene_pipeline_fps=n_timed / wall, wall_s=wall,
-              split_ms_per_frame=split, results=n_results,
-              spawned=spawned, refines=refines, launches=launches,
-              min_dist_per_frame=launches["min_dist_voxels"] / n_timed,
+              native_mapping=native_build,
+              imports=imports, frames_s=frames_s, **run,
+              bf16=dict(n_votes=n_votes16, **run16),
               refine_async_sync_warnings=sync_calls,
               card_vs_cpu=cpu_vs_card,
               tolerance=dict(pose=PIPE_POSE_ATOL, icc_loss=ICC_LOSS_ATOL,
                              labels_grids_spawns="identical"),
               with_icp=dict(launches=icp_launches)))
     check(not bad, "pipeline card vs cpu: " + "; ".join(bad))
-    check(refines > 0, "pipeline: no ICC refine ran")
+    check_timed_pass(run, "pipeline", device)
+    check_timed_pass(run16, "pipeline in bf16", device)
     if device.type == "cuda":
-        check(launches["min_dist_voxels"] > 0,
-              "pipeline: the min_dist kernel was never launched")
-        check(launches["min_dist_voxels"] == 30 * refines,
-              f"pipeline: {launches['min_dist_voxels']} min_dist launches "
-              f"for {refines} refines of 30 iterations")
         check(icp_launches["nn_indices"] > 0,
               "pipeline with ICP: the knn kernel was never launched")
         check(not sync_calls,
               f"refine_async synchronised: {sync_calls}")
-    return launches["min_dist_voxels"], icp_launches["nn_indices"]
+    return (run["launches"]["min_dist_voxels"],
+            run16["launches"]["min_dist_voxels"],
+            icp_launches["nn_indices"], model16)
+
+
+# -------------------------------------------------------------- phase 10
+
+
+def host_timed(fn, reps, device):
+    """Mean host ms of ``fn`` over ``reps`` calls, the card synchronised
+    around them, and the last result."""
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def generator_class_map(frame):
+    """The generator's class map of a frame (0 = background) and its
+    instance boundaries (``boundary_from_instance_label``)."""
+    from morefusion_tpu_torch.models.segmentation import (
+        boundary_from_instance_label,
+    )
+
+    label = frame["instance_label"]
+    class_map = np.zeros(label.shape, np.int32)
+    for ins, cid in frame["instance_to_class"].items():
+        class_map[label == ins] = cid
+    return class_map, boundary_from_instance_label(label)
+
+
+def phase_segmenter(device, small, counts, models, frames, pose_model):
+    from morefusion_tpu_torch.models.segmentation import (
+        SegmentationNode,
+        UNetSegmentation,
+        instances_from_predictions,
+        merge_occlusion_splits,
+    )
+    from morefusion_tpu_torch.ops import connected_components
+    from morefusion_tpu_torch.ops import relabel_components
+    from morefusion_tpu_torch.runtime import ScenePipeline
+
+    torch.manual_seed(21)
+    unet = UNetSegmentation(n_class=SEG_N_CLASS, widths=SEG_WIDTHS,
+                            with_boundary=True, use_depth=False).eval()
+    cpu_unet = UNetSegmentation(n_class=SEG_N_CLASS, widths=SEG_WIDTHS,
+                                with_boundary=True, use_depth=False).eval()
+    cpu_unet.load_state_dict(unet.state_dict())
+    node = SegmentationNode(unet, device=device)
+    rgb = frames[0]["rgb"]
+    H, W = rgb.shape[:2]
+
+    # (a) the UNet, card against CPU
+    x = torch.from_numpy(rgb[None])
+    with torch.inference_mode():
+        logits, blog = unet(x.to(device))
+        want_logits, want_blog = cpu_unet(x)
+    logit_err = max(float((logits.cpu() - want_logits).abs().max()),
+                    float((blog.cpu() - want_blog).abs().max()))
+    argmax_agree = float((logits.argmax(1).cpu() == want_logits.argmax(1))
+                         .double().mean())
+    check(logit_err <= SEG_LOGIT_ATOL,
+          f"segmenter: UNet logits card vs CPU {logit_err} apart")
+
+    # (b) connected components, card against CPU, on the generator's class
+    # map with its instance boundaries
+    cm, bnd = generator_class_map(frames[0])
+    args = (torch.from_numpy(cm), torch.from_numpy(bnd))
+    comp, stats = connected_components(*(a.to(device) for a in args),
+                                       return_stats=True)
+    want_comp, want_stats = connected_components(*args, return_stats=True)
+    n_diff = int((comp.cpu() != want_comp).sum())
+    check(n_diff == 0, f"segmenter: {n_diff} component keys differ")
+    check(stats == want_stats,
+          f"segmenter: propagation {stats} (card) vs {want_stats} (cpu)")
+    n_components = len(np.unique(want_comp.numpy())) - 1
+    # the same cut by max_iters inside a chunk of host reads: the keys of
+    # a propagation stopped short, so the step count must be exact
+    check(stats["iterations"][0] > SEG_CUT_ITERS,
+          f"segmenter: the generator's map converges in {stats} steps, "
+          f"no cut at {SEG_CUT_ITERS}")
+    cut, cut_stats = connected_components(
+        *(a.to(device) for a in args), max_iters=SEG_CUT_ITERS,
+        return_stats=True)
+    want_cut, want_cut_stats = connected_components(
+        *args, max_iters=SEG_CUT_ITERS, return_stats=True)
+    cut_diff = int((cut.cpu() != want_cut).sum())
+    check(cut_diff == 0 and cut_stats == want_cut_stats,
+          f"segmenter: cut at {SEG_CUT_ITERS} steps, {cut_diff} keys "
+          f"differ, propagation {cut_stats} (card) vs {want_cut_stats} (cpu)")
+
+    # (c) timing: each stage, then one whole node call
+    reps = 20 if not small else 2
+    with torch.inference_mode():
+        x_dev = x.to(device)
+        forward_ms = (cuda_ms(lambda: unet(x_dev), reps)
+                      if device.type == "cuda" else None)
+        forward_host_ms, (lg, bl) = host_timed(lambda: unet(x_dev), reps,
+                                               device)
+        class_map = lg[0].argmax(0).to(torch.int32)
+        boundary = bl[0] > 0.0
+        cc_ms, (unet_comp, unet_stats) = host_timed(
+            lambda: connected_components(class_map, boundary,
+                                         return_stats=True), reps, device)
+        gen_cc_ms, _ = host_timed(
+            lambda: connected_components(*(a.to(device) for a in args)),
+            reps, device)
+    # the components on the UNet's own map, card against CPU on the same
+    # input: on the card both propagations stop at the 256-step cap
+    # (connected_components' max_iters), so the keys hold the cut there
+    want_unet_comp, want_unet_stats = connected_components(
+        class_map.cpu(), boundary.cpu(), return_stats=True)
+    unet_diff = int((unet_comp.cpu() != want_unet_comp).sum())
+    check(unet_diff == 0 and unet_stats == want_unet_stats,
+          f"segmenter: UNet map, {unet_diff} component keys differ, "
+          f"propagation {unet_stats} (card) vs {want_unet_stats} (cpu)")
+    if not small:
+        check(unet_stats["iterations"] == [256, 256],
+              f"segmenter: the UNet map's propagation {unet_stats} does not "
+              f"reach the cap, which this check is for")
+    cc_profile = None
+    if device.type == "cuda":
+        cc_profile = profile_calls(
+            lambda: connected_components(class_map, boundary), device, 2)
+        cc_profile["kernels_per_step"] = (cc_profile["kernels_per_call"]
+                                          / sum(unet_stats["iterations"]))
+    cm_host, comp_host = class_map.cpu().numpy(), unet_comp.cpu().numpy()
+    relabel_ms, (label, classes) = host_timed(
+        lambda: relabel_components(comp_host, cm_host), reps, device)
+    merge_ms, _ = host_timed(
+        lambda: merge_occlusion_splits(label, classes, cm_host), reps,
+        device)
+    node(rgb)
+    node_ms, (label, classes) = host_timed(lambda: node(rgb), reps, device)
+    # the cv2 oracle on the same class map and boundary, and a whole node
+    # call in that mode (the class map and boundary read to the host)
+    bnd_host = boundary.cpu().numpy()
+    cv2_ms, _ = host_timed(
+        lambda: instances_from_predictions(cm_host, bnd_host), reps, device)
+    cv2_node = SegmentationNode(unet, device_instancing=False, device=device)
+    cv2_node(rgb)
+    cv2_node_ms, _ = host_timed(lambda: cv2_node(rgb), reps, device)
+
+    # (d) the scene pipeline on the segmenter's instances (no labels given),
+    # the pose model in bf16 as bench.py --segmenter serves it
+    V = 32 if not small else 16
+    seg_frames = [{k: f[k] for k in ("rgb", "depth", "K", "T_cam2world")}
+                  for f in frames]
+
+    def make(n_votes):
+        return ScenePipeline(pose_model, models, segmenter=node,
+                             voxel_dim=V, n_votes=n_votes,
+                             native_mapping=True, size_filter=False,
+                             async_refine=True, device=device)
+
+    pipe, n_votes = warm_pipeline(make, seg_frames, 1)
+    run = timed_stream(pipe, seg_frames, counts, device,
+                       6 if not small else 2, segment=True)
+    emit(dict(phase="segmenter", ok=True, device=str(device), frame=[H, W],
+              n_class=SEG_N_CLASS, widths=list(SEG_WIDTHS),
+              with_boundary=True, use_depth=False, weights="seeded",
+              unet_card_vs_cpu=dict(max_abs_err=logit_err,
+                                    argmax_agreement=argmax_agree,
+                                    tolerance=SEG_LOGIT_ATOL),
+              components_card_vs_cpu=dict(
+                  keys_differing=n_diff, components=n_components,
+                  propagation=stats, identical=True,
+                  cut=dict(max_iters=SEG_CUT_ITERS, keys_differing=cut_diff,
+                           propagation=cut_stats),
+                  unet_map=dict(keys_differing=unet_diff,
+                                propagation=unet_stats)),
+              ms=dict(forward_cuda=forward_ms, forward_host=forward_host_ms,
+                      components=cc_ms, components_generator_map=gen_cc_ms,
+                      relabel=relabel_ms, merge=merge_ms, node_call=node_ms,
+                      cv2_instancing=cv2_ms, node_call_cv2=cv2_node_ms),
+              unet_components=dict(propagation=unet_stats,
+                                   instances=len(classes),
+                                   profile=cc_profile),
+              pipeline=dict(n_votes=n_votes,
+                            n_votes_note=None if n_votes == 3 else
+                            "no track spawned at n_votes=3 over these frames",
+                            pose_model="bf16", **run)))
+    check_timed_pass(run, "pipeline with the segmenter", device)
+    return run["launches"]["min_dist_voxels"]
 
 
 # ------------------------------------------------------------------ main
@@ -1691,6 +2341,17 @@ def main(argv=None):
     setup = train_setup(device, small)
     train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
     icp_scene = make_icp_scene(9, small)
+    t0 = time.perf_counter()
+    scene_models, frames = pipeline_frames(small)
+    frames_s = time.perf_counter() - t0
+    extra_scenes = [pipeline_frames(small, seed)[1]
+                    for seed in EXTRA_SCENE_SEEDS[:1 if small else None]]
+    # the C++ mapping of the scene pipeline (phases 8-10)
+    from morefusion_tpu_torch.contrib import mapping_native
+    built = mapping_native.stale()
+    native_build = dict(built=built,
+                        build_s=mapping_native.build() if built else None)
+    mapping_native.load_library()
     max_err = phase_kernel_vs_plain(device, small, train_inputs)
     serving_icp_launches = phase_serving(device, small, counts)
     icc_launches = phase_icc(device, small, counts)
@@ -1702,21 +2363,28 @@ def main(argv=None):
     train_launches = phase_train(device, small, counts, setup)
     knn_timing = phase_knn_timing(device, small,
                                   icp_clouds(icp_scene, device))
-    icp_launches = phase_icp(device, small, counts, icp_scene)
+    icp_launches = phase_icp(device, small, counts, icp_scene, scene_models,
+                             [frames] + extra_scenes)
     if not small:
         check(icp_launches > 0, "icp: the knn kernel was never launched")
-    pipeline_launches, pipeline_icp_launches = phase_pipeline(
-        device, small, counts)
+    (pipeline_launches, pipeline_bf16_launches, pipeline_icp_launches,
+     model16) = phase_pipeline(device, small, counts, scene_models, frames,
+                               frames_s, native_build)
+    segmenter_launches = phase_segmenter(device, small, counts, scene_models,
+                                         frames, model16)
 
     kernels = [dict(
         name="min_dist", route="cuda",
         source="morefusion_tpu_torch/csrc/min_dist.cu",
         replaces="morefusion_tpu/ops/min_dist_pallas.py:60",
         launches=(icc_launches + train_launches["min_dist_voxels"]
-                  + pipeline_launches),
+                  + pipeline_launches + pipeline_bf16_launches
+                  + segmenter_launches),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
-                              scene_pipeline=pipeline_launches),
+                              scene_pipeline=pipeline_launches,
+                              scene_pipeline_bf16=pipeline_bf16_launches,
+                              scene_pipeline_segmenter=segmenter_launches),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],

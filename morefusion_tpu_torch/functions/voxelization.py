@@ -2,7 +2,10 @@
 
 Port of ``morefusion_tpu/functions/voxelization.py``
 (``average_voxelization_3d`` and ``interpolate_voxel_grid``). Grids are
-channels-last ``(B, X, Y, Z, C)`` at these function boundaries.
+channels-last ``(B, X, Y, Z, C)`` at these function boundaries. Both take
+bf16 values. Where JAX sums bf16 values in bf16, the scatter-mean here sums
+them in fp32 and casts the mean to bf16: a bf16 ``index_add_`` on the card
+adds in a run-dependent order and loses bits.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ def average_voxelization_3d(
     """Scatter-mean point features into their nearest voxels.
 
     ``values (P, C)``, ``points (P, 3)``, ``batch_indices (P,)`` ->
-    ``(B, X, Y, Z, C)``. NaN and out-of-bounds points are dropped; each
-    voxel is the mean of the points that land in it (0 if none).
+    ``(B, X, Y, Z, C)`` in ``values.dtype``. NaN and out-of-bounds points
+    are dropped; each voxel is the mean of the points that land in it (0 if
+    none), summed in fp32 at least.
     """
     X, Y, Z = _dims3(dimensions)
     P, C = values.shape
@@ -50,12 +54,15 @@ def average_voxelization_3d(
     lin = ((batch_indices.to(torch.int64) * X + idx[:, 0]) * Y
            + idx[:, 1]) * Z + idx[:, 2]
     lin = torch.where(valid, lin, torch.full_like(lin, n_voxels))
-    sums = values.new_zeros((n_voxels + 1, C)).index_add(0, lin, values)
+    acc = torch.promote_types(values.dtype, torch.float32)
+    sums = values.new_zeros((n_voxels + 1, C), dtype=acc).index_add(
+        0, lin, values.to(acc))
     counts = torch.zeros(n_voxels + 1, dtype=torch.int32, device=device)
     counts = counts.index_add(0, lin, valid.to(torch.int32))
     sums, counts = sums[:-1], counts[:-1]
-    denom = counts.clamp_min(1).to(values.dtype)
-    grid = (sums / denom[:, None]).reshape(batch_size, X, Y, Z, C)
+    denom = counts.clamp_min(1).to(acc)
+    grid = (sums / denom[:, None]).to(values.dtype).reshape(
+        batch_size, X, Y, Z, C)
     if return_counts:
         return grid, counts.reshape(batch_size, X, Y, Z)
     return grid
@@ -66,8 +73,9 @@ _CORNERS = [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 
 def interpolate_voxel_grid(grid, points, batch_indices) -> torch.Tensor:
     """Trilinear sample of ``grid (B, X, Y, Z, C)`` at ``points (P, 3)`` in
-    voxel units; out-of-bounds corners contribute 0. Returns ``(P, C)``,
-    differentiable w.r.t. the grid and the points."""
+    voxel units; out-of-bounds corners contribute 0. Returns ``(P, C)`` in
+    the grid's dtype (the weights are cast to it), differentiable w.r.t. the
+    grid and the points."""
     B, X, Y, Z, C = grid.shape
     lo = torch.floor(points)
     frac = points - lo

@@ -5,15 +5,22 @@
 from . import losses
 from .convert_jax import load_jax_npz
 from .convert_jax import params_from_jax
+from .convert_jax import variables_from_jax
+from .convert_torch import convert_torchvision_resnet18
+from .convert_torch import graft_resnet18
 from .heads import PoseHeads
 from .heads import select_class
 from .pspnet import PSPNetExtractor
 from .resnet import DilatedResNet18
+from .resnet import DilatedResNet34
+from .resnet import ResNet18Extractor
 from .resnet import normalize_rgb
 from .sampling import compute_origin
 from .sampling import gather_pixels
 from .sampling import masked_median
 from .sampling import sample_mask_indices
+from .segmentation import SegmentationNode
+from .segmentation import UNetSegmentation
 from .singleview_3d import SingleView3D
 
 

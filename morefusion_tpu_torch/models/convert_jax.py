@@ -9,12 +9,15 @@ bf16 is the upper half of fp32, so a leaf decodes exactly as
 Layouts: conv kernels ``(k..., I, O) -> (O, I, k...)``, Dense kernels
 ``(I, O) -> (O, I)``, PReLU's scalar slope -> ``(1,)``. The port's modules
 are named after the flax tree, so ``['params']['a']['b']['kernel']`` becomes
-``a.b.weight``.
+``a.b.weight``. Norm layers: ``scale`` (BatchNorm, GroupNorm) becomes
+``weight``; a BatchNorm's ``['batch_stats'][...]['mean' | 'var']`` become
+``running_mean`` / ``running_var``.
 """
 
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 from typing import Dict
 
 import numpy as np
@@ -55,15 +58,40 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+_RENAME = {
+    "params": {"kernel": "weight", "negative_slope": "weight",
+               "scale": "weight"},
+    "batch_stats": {"mean": "running_mean", "var": "running_var"},
+}
+
+
 def params_from_jax(np_params: Dict[str, np.ndarray]):
-    """``{keystr: array}`` of a flax ``{'params': ...}`` tree -> state dict."""
+    """``{keystr: array}`` of a flax ``{'params': ...}`` tree, and of its
+    ``'batch_stats'`` if it has any -> state dict."""
     state = {}
     for key, arr in np_params.items():
         path = _KEY.findall(key)
-        if not path or path[0] != "params":
-            raise ValueError(f"not a params leaf: {key!r}")
+        if not path or path[0] not in _RENAME:
+            raise ValueError(f"not a params or batch_stats leaf: {key!r}")
         *mods, leaf = path[1:]
-        name = {"kernel": "weight", "negative_slope": "weight"}.get(leaf, leaf)
+        name = _RENAME[path[0]].get(leaf)
+        if name is None and path[0] == "batch_stats":
+            raise ValueError(f"unknown batch statistic: {key!r}")
         arr = _to_torch_layout(leaf, np.asarray(arr, np.float32))
-        state[".".join(mods + [name])] = torch.tensor(arr)
+        state[".".join(mods + [name or leaf])] = torch.tensor(arr)
     return state
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        if isinstance(v, Mapping):
+            yield from _flatten(v, key)
+        else:
+            yield key, np.asarray(v)
+
+
+def variables_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A whole flax variables tree (``{'params': ..., 'batch_stats': ...}``,
+    nested mappings of numpy arrays) -> state dict."""
+    return params_from_jax(dict(_flatten(variables)))

@@ -1,6 +1,9 @@
 """Per-point pose heads (rot / trans / conf towers) and class selection.
 
-Port of ``morefusion_tpu/models/heads.py``.
+Port of ``morefusion_tpu/models/heads.py``. The hidden layers compute in
+``compute_dtype``. The ``*_out`` layers have no compute dtype in JAX, so
+flax promotes their bf16 input to their fp32 parameters: they and the
+sigmoid compute in fp32, and so do the outputs.
 """
 
 from __future__ import annotations
@@ -9,23 +12,26 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from .layers import Linear
+
 
 class PoseHeads(nn.Module):
     """``(B, P, C)`` point features -> per-class quaternions
     ``(B, P, n_fg_class, 4)``, translation offsets ``(B, P, n_fg_class, 3)``
     and confidences ``(B, P, n_fg_class)`` in (0, 1)."""
 
-    def __init__(self, in_channels, n_fg_class, widths=(640, 256, 128)):
+    def __init__(self, in_channels, n_fg_class, widths=(640, 256, 128),
+                 compute_dtype=torch.float32):
         super().__init__()
         self.n_fg_class = n_fg_class
         self._widths = tuple(widths)
         for name, out_dim in (("rot", 4), ("trans", 3), ("conf", 1)):
             dims = (in_channels, *widths)
             for i in range(len(widths)):
-                self.add_module(f"{name}_fc{i + 1}",
-                                nn.Linear(dims[i], dims[i + 1]))
+                self.add_module(f"{name}_fc{i + 1}", Linear(
+                    dims[i], dims[i + 1], compute_dtype=compute_dtype))
             self.add_module(f"{name}_out",
-                            nn.Linear(widths[-1], n_fg_class * out_dim))
+                            Linear(widths[-1], n_fg_class * out_dim))
 
     def _tower(self, h, name):
         for i in range(len(self._widths)):

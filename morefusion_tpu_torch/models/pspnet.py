@@ -7,7 +7,8 @@ resizing is ``F.interpolate(align_corners=False)``, which matches
 ``jax.image.resize(..., "bilinear")`` when upsampling, the only way it is
 used here. Dropout at 0.3, 0.15 and 0.15 after the pyramid and the first two
 upsampling stages is on only in training, with masks drawn from an explicit
-``torch.Generator``. NCHW throughout.
+``torch.Generator``. The convolutions compute in ``compute_dtype``; the
+log-softmax runs in fp32. NCHW throughout.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from .layers import Conv2d, PReLU
 
 
 # rates after the pyramid module and the first two upsampling stages
@@ -39,14 +42,16 @@ def dropout(x, rate: float, generator: torch.Generator):
 
 class PSPModule(nn.Module):
     def __init__(self, in_channels, out_channels=1024,
-                 sizes: Sequence[int] = (1, 2, 3, 6)):
+                 sizes: Sequence[int] = (1, 2, 3, 6),
+                 compute_dtype=torch.float32):
         super().__init__()
         self._sizes = tuple(sizes)
+        dt = dict(compute_dtype=compute_dtype)
         for i in range(len(sizes)):
-            self.add_module(f"Conv_{i}",
-                            nn.Conv2d(in_channels, in_channels, 1, bias=False))
-        self.add_module(f"Conv_{len(sizes)}", nn.Conv2d(
-            in_channels * (len(sizes) + 1), out_channels, 1))
+            self.add_module(f"Conv_{i}", Conv2d(in_channels, in_channels, 1,
+                                                bias=False, **dt))
+        self.add_module(f"Conv_{len(sizes)}", Conv2d(
+            in_channels * (len(sizes) + 1), out_channels, 1, **dt))
 
     def forward(self, x):
         _, _, H, W = x.shape
@@ -62,11 +67,11 @@ class PSPModule(nn.Module):
 
 
 class PSPUpsample(nn.Module):
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, compute_dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        # flax's PReLU has one scalar slope
-        self.PReLU_0 = nn.PReLU(1, init=0.01)
+        self.Conv_0 = Conv2d(in_channels, out_channels, 3, padding=1,
+                             compute_dtype=compute_dtype)
+        self.PReLU_0 = PReLU()
 
     def forward(self, x):
         _, _, H, W = x.shape
@@ -78,14 +83,16 @@ class PSPNetExtractor(nn.Module):
 
     def __init__(self, in_channels=512, out_channels=32,
                  bottleneck_channels=1024,
-                 up_channels: Sequence[int] = (256, 64, 64)):
+                 up_channels: Sequence[int] = (256, 64, 64),
+                 compute_dtype=torch.float32):
         super().__init__()
-        self.PSPModule_0 = PSPModule(in_channels, bottleneck_channels)
+        dt = dict(compute_dtype=compute_dtype)
+        self.PSPModule_0 = PSPModule(in_channels, bottleneck_channels, **dt)
         widths = (bottleneck_channels, *up_channels)
         for i in range(3):
             self.add_module(f"PSPUpsample_{i}",
-                            PSPUpsample(widths[i], widths[i + 1]))
-        self.Conv_0 = nn.Conv2d(up_channels[2], out_channels, 1)
+                            PSPUpsample(widths[i], widths[i + 1], **dt))
+        self.Conv_0 = Conv2d(up_channels[2], out_channels, 1, **dt)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):

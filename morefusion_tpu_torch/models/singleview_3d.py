@@ -1,13 +1,21 @@
 """SingleView3D: the volumetric pose-prediction model of MoreFusion.
 
-Port of ``morefusion_tpu/models/singleview_3d.py::SingleView3D`` in fp32:
-DilatedResNet18 + PSPNet give per-pixel 32-channel features; ``n_point``
+Port of ``morefusion_tpu/models/singleview_3d.py::SingleView3D``:
+DilatedResNet18 (or, with ``pretrained_resnet18``, the frozen-BN
+``ResNet18Extractor``) + PSPNet give per-pixel 32-channel features; ``n_point``
 masked pixels are sampled per instance; point MLPs build 72/144-channel
 point features, which are scatter-mean voxelized into a ``voxel_dim^3``
 grid (with the occupancy branch: two 3D convs over the no-entry grid
 concatenated in); two strided 3D convs are trilinearly sampled back onto
 the points; per-class heads give per-point poses. Submodule names follow
 the flax parameter tree (see ``convert_jax.py``).
+
+``compute_dtype`` (fp32 or bf16) is the dtype of the conv and dense stacks,
+as in JAX: the parameters stay fp32 and each layer casts its input and
+weight. Explicit casts, not ``torch.autocast``, whose op lists differ from
+flax's (it would run ``ResNet18Extractor`` in bf16, where JAX keeps it in
+fp32). The log-softmax, the heads' output layers and the pose outputs stay
+fp32.
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ from ..functions.voxelization import (
     interpolate_voxel_grid,
 )
 from .heads import PoseHeads, select_class
+from .layers import Conv3d, Linear
 from .pspnet import PSPNetExtractor
-from .resnet import DilatedResNet18
+from .resnet import DilatedResNet18, ResNet18Extractor
 from .sampling import compute_origin, gather_pixels, sample_mask_indices
 
 
@@ -35,6 +44,7 @@ class SingleView3D(nn.Module):
         n_point: int = 1000,
         voxel_dim: int = 32,
         with_occupancy: bool = False,
+        pretrained_resnet18: bool = False,
         backbone_width: int = 64,
         psp_bottleneck: int = 1024,
         psp_up: tuple = (256, 64, 64),
@@ -42,41 +52,53 @@ class SingleView3D(nn.Module):
         conv4_channels: int = 512,
         tower_widths: tuple = (640, 256, 128),
         point_widths: tuple = (64, 8, 128, 16),
+        compute_dtype=torch.float32,
     ):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: fp32 or bf16")
         self.n_fg_class = n_fg_class
         self.n_point = n_point
         self.voxel_dim = voxel_dim
         self.with_occupancy = with_occupancy
-        self.resnet_extractor = DilatedResNet18(base_width=backbone_width)
+        self.compute_dtype = compute_dtype
+        dt = dict(compute_dtype=compute_dtype)
+        if pretrained_resnet18:
+            self.resnet_extractor = ResNet18Extractor()
+            backbone_channels = 512
+        else:
+            self.resnet_extractor = DilatedResNet18(base_width=backbone_width,
+                                                    **dt)
+            backbone_channels = backbone_width * 8
         self.pspnet_extractor = PSPNetExtractor(
-            in_channels=backbone_width * 8,
-            bottleneck_channels=psp_bottleneck, up_channels=psp_up,
+            in_channels=backbone_channels,
+            bottleneck_channels=psp_bottleneck, up_channels=psp_up, **dt,
         )
         w1r, w1p, w2r, w2p = point_widths
-        self.conv1_rgb = nn.Linear(32, w1r)
-        self.conv1_pcd = nn.Linear(3, w1p)
-        self.conv2_rgb = nn.Linear(w1r, w2r)
-        self.conv2_pcd = nn.Linear(w1p, w2p)
+        self.conv1_rgb = Linear(32, w1r, **dt)
+        self.conv1_pcd = Linear(3, w1p, **dt)
+        self.conv2_rgb = Linear(w1r, w2r, **dt)
+        self.conv2_pcd = Linear(w1p, w2p, **dt)
         voxel_channels = w2r + w2p
         if with_occupancy:
-            self.conv1_occ = nn.Conv3d(1, 8, 3, padding=1)
-            self.conv2_occ = nn.Conv3d(8, 16, 3, padding=2, dilation=2)
+            self.conv1_occ = Conv3d(1, 8, 3, padding=1, **dt)
+            self.conv2_occ = Conv3d(8, 16, 3, padding=2, dilation=2, **dt)
             voxel_channels += 16
-        self.conv3 = nn.Conv3d(voxel_channels, conv3_channels, 4, stride=2,
-                               padding=1)
-        self.conv4 = nn.Conv3d(conv3_channels, conv4_channels, 4, stride=2,
-                               padding=1)
+        self.conv3 = Conv3d(voxel_channels, conv3_channels, 4, stride=2,
+                            padding=1, **dt)
+        self.conv4 = Conv3d(conv3_channels, conv4_channels, 4, stride=2,
+                            padding=1, **dt)
         feat_channels = (w1r + w1p + w2r + w2p + conv3_channels
                          + conv4_channels)
-        self.heads = PoseHeads(feat_channels, n_fg_class, tower_widths)
+        self.heads = PoseHeads(feat_channels, n_fg_class, tower_widths, **dt)
 
     def _extract(self, values, points, grid_nontarget_empty):
         """``values (B, P, 32)`` and voxel-frame ``points (B, P, 3)`` ->
         ``(B, P, C)`` fused point features."""
         B, P, _ = values.shape
         V = self.voxel_dim
-        to_center = (V / 2.0 - 0.5) - points
+        to_center = ((V / 2.0 - 0.5) - points).to(self.compute_dtype)
+        values = values.to(self.compute_dtype)
         h_rgb = F.relu(self.conv1_rgb(values))
         h_pcd = F.relu(self.conv1_pcd(to_center))
         feat1 = torch.cat([h_rgb, h_pcd], dim=-1)
@@ -92,6 +114,7 @@ class SingleView3D(nn.Module):
             dimensions=(V, V, V),
         ).permute(0, 4, 1, 2, 3)  # (B, C, V, V, V)
         if self.with_occupancy:
+            # fp32 into the convs, which cast it, as in JAX
             occ = grid_nontarget_empty.to(torch.float32)[:, None]
             h_occ = F.relu(self.conv1_occ(occ))
             h_occ = F.relu(self.conv2_occ(h_occ))

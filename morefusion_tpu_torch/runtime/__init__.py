@@ -1,8 +1,10 @@
-"""Serving nodes of the port (``morefusion_tpu.runtime``): the pose node and
-the scene pipeline with its fusion, tracking and object mapping."""
+"""Serving nodes of the port (``morefusion_tpu.runtime``): the pose node, the
+segmentation node and the scene pipeline with its fusion, tracking and object
+mapping."""
 
 # flake8: noqa: F401
 
+from ..models.segmentation import SegmentationNode
 from .fusion import OccupancyFusion
 from .object_mapping import ObjectMapping
 from .object_mapping import ObjectTrack

@@ -8,7 +8,9 @@ the reference launch graph (SURVEY.md §3.4: camera -> instance segmentation -> 
 pose CNN -> object mapping -> collision refinement -> picking order),
 with ROS topics replaced by direct calls — the ROS bindings stay a thin
 adapter on top of this class. Segmentation is pluggable: ground-truth
-labels, or any callable returning (instance_label, {id: class_id}).
+labels, or any callable returning (instance_label, {id: class_id}), such as
+``models.SegmentationNode``. The pipeline serves whatever ``compute_dtype``
+the pose model carries; its inputs, poses and ICC stay fp32.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ ships one RGB frame, one organized cloud, the instance label image and
 per-instance scalars; cropping, the forward and the best-confidence readout
 run on the device. With ``with_icp=True``, :meth:`PoseEstimationNode.resolve`
 then refines each pose by ICP against the instance's observed points, one
-object at a time, as the JAX node does.
+object at a time, as the JAX node does. The model computes in its own
+``compute_dtype`` (fp32 or bf16); the crops, the poses, the confidences and
+ICP stay fp32.
 """
 
 from __future__ import annotations

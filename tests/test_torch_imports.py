@@ -49,7 +49,9 @@ def test_port_sources_exist():
                    "runtime/tracking.py", "runtime/object_mapping.py",
                    "contrib/occupancy_mapping.py", "contrib/mapping_native.py",
                    "simulation/scene_generation.py", "extra/render.py",
-                   "geometry/cameras.py", "geometry/trajectory.py"):
+                   "geometry/cameras.py", "geometry/trajectory.py",
+                   "models/layers.py", "models/convert_torch.py",
+                   "models/segmentation.py", "ops/connected_components.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 

@@ -22,7 +22,8 @@ from morefusion_tpu_torch.models.pspnet import resize_bilinear
 
 torch.set_num_threads(2)
 
-CKPT = Path(__file__).resolve().parent.parent / "docs/results/occ_best_bf16.npz"
+RESULTS = Path(__file__).resolve().parent.parent / "docs/results"
+CKPT = RESULTS / "occ_best_bf16.npz"
 
 
 def _flax_to_np(variables):
@@ -179,6 +180,18 @@ def test_occ_checkpoint_loads_into_the_full_model():
     model.load_state_dict(TM.params_from_jax(params), strict=True)
     out = params["['params']['heads']['conf_out']['bias']"]
     assert out.shape == (21,)
+
+
+@pytest.mark.parametrize("name", ["occ", "noocc", "r5tex", "r5hires",
+                                  "r5cont"])
+def test_committed_checkpoint_loads_strict(name):
+    """All five committed checkpoints: default widths, ``noocc`` without
+    the occupancy branch."""
+    model = TM.SingleView3D(n_fg_class=21, with_occupancy=name != "noocc")
+    state = TM.params_from_jax(TM.load_jax_npz(
+        RESULTS / f"{name}_best_bf16.npz"))
+    model.load_state_dict(state, strict=True)
+    assert all(torch.isfinite(v).all() for v in state.values())
 
 
 @pytest.mark.slow
