@@ -5,8 +5,9 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc``, then runs ten phases, each printing one
-JSON line (with ``elapsed_s``, the seconds since the start):
+and ``knn.cu``) with ``nvcc`` and makes phase 11's data, then runs eleven
+phases, each printing one JSON line (with ``elapsed_s``, the seconds since
+the start):
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -100,7 +101,26 @@ JSON line (with ``elapsed_s``, the seconds since the start):
    path's (``device_instancing=False``); and a short
    ``process_stream`` of ``ScenePipeline(segmenter=...)`` (the bf16 pose
    model) on frames without labels, with its split, spawns and min_dist
-   launches.
+   launches;
+11. the training loop through the train CLI (``cli/train.py``'s
+   ``main``): packed train and val sets of the port's generator
+   (``reindex`` in forked workers before anything runs on the card, then
+   ``pack_reindexed``; 240x320 frames of 3-6 objects, at least 3 train
+   batches of 16 after the 0.8 visibility filter and one val batch of 48,
+   else the phase fails); run A, the committed occ recipe at full width in
+   fp32 (``--with-occupancy --loss add/add_s``, B = 16, two epochs with an
+   evaluation after each: the ``add -> add/add_s`` switch at the second
+   epoch's first step, snapshots latest and best with their npz archives,
+   the archive equal to the snapshot rounded to bf16), then a resume by two
+   steps (the step count and ``log.json``'s rows carry on); run B in bf16
+   with the ``+occupancy`` loss for three steps, an evaluation after each;
+   one step of a resumed run A with the kernels against the same with the
+   plain versions in deterministic mode (losses within ``STEP_LOSS_RTOL``,
+   each parameter's update within phase 6's gradient tolerances); the
+   rate (``sps``, ``sps_window`` beside phase 6's bare step), the host's
+   batch preparation, copy and wait, the ms of an evaluation batch and of
+   the checkpoint saves, the final AUC and the kernel launches of runs A
+   and B.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -116,6 +136,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from unittest import mock
@@ -187,6 +208,19 @@ SEG_LOGIT_ATOL = 1e-4
 # the components cut by max_iters (phase 10): inside a chunk of host reads,
 # before the generator's map converges (4 + 3 steps at 240x320)
 SEG_CUT_ITERS = 2
+# the training loop (phase 11): packed sets of the port's generator, the
+# frame counts chosen for >= 3 train batches of 16 after the visibility
+# filter (~2.2 of ~4.4 crops a frame pass it) and one val batch of 48
+FIT_OBJECTS = (3, 6)
+FIT_MIN_VISIBILITY = 0.8
+FIT_MIN_TRAIN_BATCHES = 3
+FIT_FULL = dict(shape=(240, 320), train_frames=32, val_frames=16, batch=16,
+                val_batch=48)
+FIT_SMALL = dict(shape=(120, 160), train_frames=8, val_frames=2, batch=4,
+                 val_batch=4)
+# the yardstick of the loop's rate: run A's own train step on its last
+# batch, already on the card, timed this many times a use_symmetric
+FIT_BARE_STEPS = 6
 
 
 class CheckFailed(RuntimeError):
@@ -1150,7 +1184,7 @@ def loss_and_grads(model, loss_fn, batch, train, seed=0):
 
     device = next(model.parameters()).device
     model.zero_grad(set_to_none=True)
-    sample_gen, dropout_gen = trainer.step_generators(seed, 0, device)
+    sample_gen, dropout_gen = trainer.step_generators(seed, 0, device)[:2]
     seen = []
     hook = model.register_forward_hook(
         lambda mod, args, out: seen.append(out[2].detach()))
@@ -1307,7 +1341,7 @@ def phase_train(device, small, counts, setup):
               launches=launches,
               launches_per_step={k: v / n_steps for k, v in launches.items()},
               eval_add=[float(x) for x in out["add_or_add_s"]]))
-    return launches
+    return launches, float(np.median(step_ms))
 
 
 # --------------------------------------------------------------- phase 7
@@ -2303,6 +2337,316 @@ def phase_segmenter(device, small, counts, models, frames, pose_model):
     return run["launches"]["min_dist_voxels"]
 
 
+# -------------------------------------------------------------- phase 11
+
+
+def fit_data(root, small):
+    """Packed train and val sets of the port's generator (``reindex`` in
+    forked workers, then ``pack_reindexed``), made before anything runs on
+    the card or in OpenMP: the workers run NumPy and the C++ mapping only.
+    Fails when the train set gives fewer than ``FIT_MIN_TRAIN_BATCHES``
+    batches after the visibility filter, or the val set no whole batch."""
+    from morefusion_tpu_torch import datasets
+
+    cfg = FIT_SMALL if small else FIT_FULL
+    t0 = time.perf_counter()
+    n_workers = min(os.cpu_count() or 1, 4 if small else 16)
+    out = dict(shape=cfg["shape"], n_objects=FIT_OBJECTS,
+               n_workers=n_workers)
+    for split in ("train", "val"):
+        src = datasets.SyntheticRGBDPoseEstimationDataset(
+            split=split, n_frames=cfg[f"{split}_frames"],
+            n_objects=FIT_OBJECTS, image_shape=cfg["shape"])
+        reindexed = os.path.join(root, f"{split}_reindexed")
+        datasets.reindex(reindexed, [src], n_workers=n_workers,
+                         progress=False)
+        datasets.pack_reindexed(reindexed, os.path.join(root, split),
+                                progress=False)
+        out[f"{split}_frames"] = cfg[f"{split}_frames"]
+    train = datasets.PackedPoseDataset(os.path.join(root, "train"),
+                                       min_visibility=FIT_MIN_VISIBILITY)
+    val = datasets.PackedPoseDataset(os.path.join(root, "val"))
+    out.update(train_crops=len(train), val_crops=len(val),
+               train_crops_all=len(datasets.PackedPoseDataset(
+                   os.path.join(root, "train"))),
+               data_s=time.perf_counter() - t0)
+    check(len(train) >= FIT_MIN_TRAIN_BATCHES * cfg["batch"],
+          f"fit data: {len(train)} train crops at visibility >= "
+          f"{FIT_MIN_VISIBILITY}, fewer than {FIT_MIN_TRAIN_BATCHES} "
+          f"batches of {cfg['batch']}")
+    check(len(val) >= cfg["val_batch"],
+          f"fit data: {len(val)} val crops, no batch of {cfg['val_batch']}")
+    return out
+
+
+def run_cli(argv, spy=None, keep=None):
+    """``cli.train.main(argv)`` -> (state, summary); with ``spy`` a list,
+    each train step's (step, use_symmetric) is appended to it; with
+    ``keep`` a dict, it holds the loop's train step and its last batch."""
+    from morefusion_tpu_torch.cli import train as cli
+    from morefusion_tpu_torch.training import loop
+
+    if spy is None:
+        return cli.main(argv)
+    real = loop.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def spied(state, batch, use_symmetric, seed=0):
+            spy.append((state.step, bool(use_symmetric)))
+            if keep is not None:
+                keep.update(step=step, batch=batch, seed=seed)
+            return step(state, batch, use_symmetric, seed=seed)
+
+        return spied
+
+    with mock.patch.object(loop, "make_train_step", make):
+        return cli.main(argv)
+
+
+def loop_step_yardstick(keep, state):
+    """Host ms of ``FIT_BARE_STEPS`` calls of the loop's own train step
+    (the device augmentation on) on its last batch, already on the card,
+    after one warm-up call, for each ``use_symmetric``; each call reads its
+    metrics back as the loop does at ``--log-interval 1``. So it does the
+    loop's work without the loop: no loader, no copy, no log."""
+    out = {}
+    for sym in (False, True):
+        ms = []
+        for i in range(FIT_BARE_STEPS + 1):
+            t0 = time.perf_counter()
+            _, metrics = keep["step"](state, keep["batch"], sym,
+                                      seed=keep["seed"])
+            _ = {k: float(v) for k, v in metrics.items()}
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["symmetric" if sym else "add"] = ms
+    return out
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def median(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def latest_weights(run_dir):
+    ckpt = torch.load(os.path.join(run_dir, "snapshot_trainer_latest"),
+                      map_location="cpu", weights_only=True)
+    return ckpt["step"], ckpt["model"]
+
+
+def compare_updates(got, want, before, what):
+    """Two runs' weights after one step from the same ``before``: each
+    parameter's update within phase 6's ``STEP_GRAD_RTOL`` of its own norm
+    plus ``STEP_GRAD_TOTAL`` of the whole update's norm."""
+    du = {k: want[k].double() - before[k].double() for k in want}
+    total = float(torch.sqrt(sum((d ** 2).sum() for d in du.values())))
+    worst = 0.0
+    for k, d in du.items():
+        err = float((got[k].double() - want[k].double()).norm())
+        bound = STEP_GRAD_RTOL * float(d.norm()) + STEP_GRAD_TOTAL * total
+        worst = max(worst, err / bound if bound > 0 else float(err > 0))
+        check(err <= bound, f"{what}: weights of {k} off by {err} "
+                            f"(update {float(d.norm())}, whole {total})")
+    check(total > 0, f"{what}: the step changed no weight")
+    return dict(update_norm=total, max_err_over_tolerance=worst)
+
+
+def phase_fit(device, small, counts, data, root, bare_step_ms):
+    """The train CLI on the packed sets: run A (fp32, the committed occ
+    recipe: two epochs with an evaluation after each, then a resume), run B
+    (bf16, the ``+occupancy`` loss, three steps), and one step of a resumed
+    run with the kernels against the plain versions."""
+    import shutil
+
+    from morefusion_tpu_torch.models import convert_jax
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    cfg = FIT_SMALL if small else FIT_FULL
+    common = ["--data", os.path.join(root, "train"), "--val-data",
+              os.path.join(root, "val"), "--with-occupancy",
+              "--batch-size", str(cfg["batch"]), "--val-batch-size",
+              str(cfg["val_batch"]), "--device", device.type,
+              "--min-visibility", str(FIT_MIN_VISIBILITY)]
+    if small:
+        common += ["--tiny", "--n-point", "64"]
+
+    def counted(argv, spy=None, keep=None):
+        for c in counts:
+            c.launches = 0
+        out = run_cli(common + argv, spy, keep)
+        return out, {c.__name__: c.launches for c in counts}
+
+    # run A: the committed occ recipe, then a resume by two steps
+    run_a = os.path.join(root, "run_a")
+    calls, keep = [], {}
+    t0 = time.perf_counter()
+    (state, summary), launches_a = counted(
+        ["--out", run_a, "--loss", "add/add_s", "--epochs", "2",
+         "--eval-interval", "1.0", "--log-interval", "1"], calls, keep)
+    run_a_s = time.perf_counter() - t0
+    spe = read_json(os.path.join(run_a, "timing.json"))["steps_per_epoch"]
+    check(spe >= FIT_MIN_TRAIN_BATCHES, f"fit: {spe} steps an epoch")
+    check(state.step == 2 * spe, f"fit: run A ended at step {state.step}")
+    check(calls == [(s, s >= spe) for s in range(2 * spe)],
+          f"fit: the add -> add/add_s switch is not at step {spe}: {calls}")
+    auc = summary.get("main/add_or_add_s/auc")
+    check(auc is not None and np.isfinite(auc), f"fit: summary {summary}")
+    log_a = read_json(os.path.join(run_a, "log.json"))
+    evals = [r["iteration"] for r in log_a if "main/add_or_add_s/auc" in r]
+    check(evals == [spe, 2 * spe], f"fit: evaluations at {evals}")
+    timing = read_json(os.path.join(run_a, "timing.json"))
+    names = ["snapshot_trainer_latest"] + [
+        f"snapshot_model_best_validation_main_{m}{ext}"
+        for m in ("add_or_add_s", "auc") for ext in ("", ".npz")]
+    for name in names:
+        check(os.path.isfile(os.path.join(run_a, name)), f"fit: no {name}")
+    best = os.path.join(run_a, "snapshot_model_best_validation_main_auc")
+    exported = convert_jax.params_from_jax(
+        convert_jax.load_jax_npz(best + ".npz"))
+    snapshot = torch.load(best, map_location="cpu", weights_only=True)
+    check(sorted(exported) == sorted(snapshot), "fit: npz keys")
+    for k, v in snapshot.items():
+        check(torch.equal(exported[k], v.to(torch.bfloat16).float()),
+              f"fit: the archive's {k} is not the snapshot rounded to bf16")
+    # run A's files are written: its state may take the yardstick's steps
+    steps_a = state.step
+    yardstick_ms = loop_step_yardstick(keep, state)
+    del keep, state
+
+    (state_r, _), launches_r = counted(
+        ["--out", run_a, "--loss", "add/add_s", "--epochs", "2",
+         "--eval-interval", "1.0", "--log-interval", "1", "--resume",
+         "--max-steps", str(2 * spe + 2)])
+    check(state_r.step == 2 * spe + 2,
+          f"fit: the resume ended at step {state_r.step}")
+    log_r = read_json(os.path.join(run_a, "log.json"))
+    check(log_r[:len(log_a)] == log_a and len(log_r) == len(log_a) + 2,
+          "fit: the resume did not keep log.json's rows")
+    fit_launches = {k: launches_a[k] + launches_r[k] for k in launches_a}
+
+    # run B: bf16 with the occupancy term (min_dist in the step), an
+    # evaluation after each step (knn)
+    run_b = os.path.join(root, "run_b")
+    (state_b, summary_b), launches_b = counted(
+        ["--out", run_b, "--bf16", "--loss", "add/add_s+occupancy",
+         "--max-steps", "3", "--eval-interval", "0.01",
+         "--log-interval", "1"])
+    check(state_b.step == 3, f"fit bf16: ended at step {state_b.step}")
+    log_b = read_json(os.path.join(run_b, "log.json"))
+    losses_b = [r["main/loss"] for r in log_b if "main/loss" in r]
+    check(len(losses_b) == 3 and np.isfinite(losses_b).all()
+          and all(r["main/loss_occupancy"] != 0 for r in log_b
+                  if "main/loss" in r), f"fit bf16: losses {log_b}")
+    if device.type == "cuda":
+        for name, launches in (("fit", fit_launches),
+                               ("fit_bf16", launches_b)):
+            for k in (("nn_indices",) if name == "fit" else
+                      ("nn_indices", "min_dist_voxels")):
+                check(launches[k] > 0, f"{name}: no {k} launch")
+
+    # kernel against plain: one step of run A resumed, +occupancy and
+    # add/add_s on, in deterministic mode
+    step0, before = latest_weights(run_a)
+    one = ["--loss", "add/add_s+occupancy", "--epochs", "2",
+           "--eval-interval", "1000", "--log-interval", "1", "--resume",
+           "--max-steps", str(step0 + 1)]
+    results = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for which in ("kernel", "plain"):
+                out = os.path.join(root, f"step_{which}")
+                shutil.copytree(run_a, out)
+                if which == "kernel":
+                    run_cli(common + ["--out", out] + one)
+                else:
+                    with mock.patch.object(md, "min_dist_voxels",
+                                           md.min_dist_voxels_plain), \
+                            mock.patch.object(knn, "nn_indices",
+                                              knn.nn_indices_plain):
+                        run_cli(common + ["--out", out] + one)
+                row = read_json(os.path.join(out, "log.json"))[-1]
+                results[which] = (row, latest_weights(out))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (row_k, (step_k, w_k)), (row_p, (step_p, w_p)) = (results["kernel"],
+                                                      results["plain"])
+    check(step_k == step_p == step0 + 1 and step0 >= spe,
+          f"fit kernel vs plain: steps {step0} -> {step_k}, {step_p}")
+    loss_err = max(abs(row_k[k] - row_p[k]) / max(abs(row_p[k]), 1e-12)
+                   for k in ("main/loss", "main/loss_add",
+                             "main/loss_occupancy"))
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"fit kernel vs plain: losses {row_k} vs {row_p}")
+    vs_plain = dict(loss_rel_err=loss_err, loss=row_k["main/loss"],
+                    **compare_updates(w_k, w_p, before,
+                                      "fit kernel vs plain"))
+
+    sps_window = [r["main/sps_window"] for r in log_a if "main/sps" in r]
+    # a window right after an evaluation (or the start) restarts the
+    # loader: the steady windows are the others. Row i holds step i - 1,
+    # which uses add/add_s from step spe on.
+    steady = {"add": [], "symmetric": []}
+    for r in log_a:
+        if "main/sps" in r and r["iteration"] % spe != 1:
+            sym = r["iteration"] - 1 >= spe
+            steady["symmetric" if sym else "add"].append(
+                1e3 / r["main/sps_window"])
+    loop_vs_bare = {
+        k: dict(loop_step_ms=steady[k], bare_step_ms=yardstick_ms[k],
+                loop_median_ms=median(steady[k]),
+                bare_median_ms=median(yardstick_ms[k]),
+                bare_spread_ms=(max(yardstick_ms[k]) - min(yardstick_ms[k])),
+                loop_minus_bare_ms=(median(steady[k])
+                                    - median(yardstick_ms[k])
+                                    if steady[k] else None))
+        for k in steady}
+    emit(dict(
+        phase="fit", ok=True, device=str(device), data=data,
+        model="tiny" if small else "SingleView3D occ, full width, fp32",
+        batch=cfg["batch"], val_batch=cfg["val_batch"],
+        steps_per_epoch=spe,
+        run_a=dict(
+            steps=steps_a, run_s=run_a_s, resumed_to=state_r.step,
+            use_symmetric_from_step=spe,
+            sps=[r["main/sps"] for r in log_a if "main/sps" in r],
+            sps_window=sps_window,
+            sps_window_median_steady=median(
+                [r["main/sps_window"] for r in log_a if "main/sps" in r
+                 and r["iteration"] % spe != 1]),
+            loop_vs_bare_step=loop_vs_bare,
+            bare_step_ms_phase6=bare_step_ms,
+            bare_step_rate_phase6=(1e3 / bare_step_ms
+                                   if bare_step_ms else None),
+            host_prep_ms=median(timing["host_prep_ms"]),
+            copy_ms=median(timing["copy_ms"]),
+            wait_ms=median(timing["wait_ms"]),
+            wait_ms_each=timing["wait_ms"],
+            eval_ms_per_batch=median(timing["eval_ms_per_batch"]),
+            save_latest_ms=median(timing["save_latest_ms"]),
+            save_best_ms=median(timing["save_best_ms"]),
+            losses=[r["main/loss"] for r in log_a if "main/loss" in r],
+            auc=auc,
+            summary={k: v for k, v in summary.items()
+                     if k.count("/") <= 2}),
+        run_b=dict(steps=state_b.step, losses=losses_b,
+                   auc=summary_b.get("main/add_or_add_s/auc")),
+        kernel_vs_plain=vs_plain,
+        tolerance=dict(loss_rtol=STEP_LOSS_RTOL,
+                       update_rtol=STEP_GRAD_RTOL,
+                       update_of_whole=STEP_GRAD_TOTAL),
+        launches=dict(fit=fit_launches, fit_bf16=launches_b)))
+    return fit_launches, launches_b
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2338,6 +2682,23 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    # the C++ mapping of the data and the scene pipeline (phases 8-11),
+    # then phase 11's data, made in forked workers before anything else
+    # runs on the card
+    from morefusion_tpu_torch.contrib import mapping_native
+    built = mapping_native.stale()
+    native_build = dict(built=built,
+                        build_s=mapping_native.build() if built else None)
+    mapping_native.load_library()
+    fit_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fit_")
+    try:
+        return run_phases(device, small, counts, native_build, fit_dir.name)
+    finally:
+        fit_dir.cleanup()
+
+
+def run_phases(device, small, counts, native_build, fit_root):
+    fit_data_info = fit_data(fit_root, small)
     setup = train_setup(device, small)
     train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
     icp_scene = make_icp_scene(9, small)
@@ -2346,12 +2707,6 @@ def main(argv=None):
     frames_s = time.perf_counter() - t0
     extra_scenes = [pipeline_frames(small, seed)[1]
                     for seed in EXTRA_SCENE_SEEDS[:1 if small else None]]
-    # the C++ mapping of the scene pipeline (phases 8-10)
-    from morefusion_tpu_torch.contrib import mapping_native
-    built = mapping_native.stale()
-    native_build = dict(built=built,
-                        build_s=mapping_native.build() if built else None)
-    mapping_native.load_library()
     max_err = phase_kernel_vs_plain(device, small, train_inputs)
     serving_icp_launches = phase_serving(device, small, counts)
     icc_launches = phase_icc(device, small, counts)
@@ -2360,7 +2715,7 @@ def main(argv=None):
     timing = phase_kernel_timing(device, small, train_inputs)
     del train_inputs
     knn_err = phase_knn_vs_plain(device, small)
-    train_launches = phase_train(device, small, counts, setup)
+    train_launches, bare_step_ms = phase_train(device, small, counts, setup)
     knn_timing = phase_knn_timing(device, small,
                                   icp_clouds(icp_scene, device))
     icp_launches = phase_icp(device, small, counts, icp_scene, scene_models,
@@ -2372,6 +2727,8 @@ def main(argv=None):
                                frames_s, native_build)
     segmenter_launches = phase_segmenter(device, small, counts, scene_models,
                                          frames, model16)
+    fit_launches, fit_bf16_launches = phase_fit(
+        device, small, counts, fit_data_info, fit_root, bare_step_ms)
 
     kernels = [dict(
         name="min_dist", route="cuda",
@@ -2379,12 +2736,15 @@ def main(argv=None):
         replaces="morefusion_tpu/ops/min_dist_pallas.py:60",
         launches=(icc_launches + train_launches["min_dist_voxels"]
                   + pipeline_launches + pipeline_bf16_launches
-                  + segmenter_launches),
+                  + segmenter_launches + fit_launches["min_dist_voxels"]
+                  + fit_bf16_launches["min_dist_voxels"]),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
                               scene_pipeline_bf16=pipeline_bf16_launches,
-                              scene_pipeline_segmenter=segmenter_launches),
+                              scene_pipeline_segmenter=segmenter_launches,
+                              fit=fit_launches["min_dist_voxels"],
+                              fit_bf16=fit_bf16_launches["min_dist_voxels"]),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -2398,11 +2758,15 @@ def main(argv=None):
         source="morefusion_tpu_torch/csrc/knn.cu",
         replaces="morefusion_tpu/ops/knn_pallas.py:36",
         launches=(train_launches["nn_indices"] + icp_launches
-                  + serving_icp_launches + pipeline_icp_launches),
+                  + serving_icp_launches + pipeline_icp_launches
+                  + fit_launches["nn_indices"]
+                  + fit_bf16_launches["nn_indices"]),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
-                              scene_pipeline_icp=pipeline_icp_launches),
+                              scene_pipeline_icp=pipeline_icp_launches,
+                              fit=fit_launches["nn_indices"],
+                              fit_bf16=fit_bf16_launches["nn_indices"]),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

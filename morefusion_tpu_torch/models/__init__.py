@@ -5,6 +5,7 @@
 from . import losses
 from .convert_jax import load_jax_npz
 from .convert_jax import params_from_jax
+from .convert_jax import params_to_jax
 from .convert_jax import variables_from_jax
 from .convert_torch import convert_torchvision_resnet18
 from .convert_torch import graft_resnet18

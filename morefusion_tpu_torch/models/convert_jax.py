@@ -11,7 +11,8 @@ Layouts: conv kernels ``(k..., I, O) -> (O, I, k...)``, Dense kernels
 are named after the flax tree, so ``['params']['a']['b']['kernel']`` becomes
 ``a.b.weight``. Norm layers: ``scale`` (BatchNorm, GroupNorm) becomes
 ``weight``; a BatchNorm's ``['batch_stats'][...]['mean' | 'var']`` become
-``running_mean`` / ``running_var``.
+``running_mean`` / ``running_var``. ``params_to_jax`` is the inverse:
+a state dict back to flax's keys and layouts.
 """
 
 from __future__ import annotations
@@ -95,3 +96,44 @@ def variables_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """A whole flax variables tree (``{'params': ..., 'batch_stats': ...}``,
     nested mappings of numpy arrays) -> state dict."""
     return params_from_jax(dict(_flatten(variables)))
+
+
+def _to_flax_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return arr.T
+        # (O, I, k...) -> (k..., I, O)
+        return arr.transpose(*range(2, arr.ndim), 1, 0)
+    if leaf == "negative_slope":
+        return arr.reshape(())
+    return arr
+
+
+def _flax_path(name: str, ndim: int):
+    """A state-dict name -> (collection, module path, flax leaf)."""
+    *mods, leaf = name.split(".")
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", mods, leaf[len("running_"):]
+    if leaf == "bias":
+        return "params", mods, leaf
+    if leaf == "weight":
+        if ndim >= 2:
+            return "params", mods, "kernel"
+        if mods and mods[-1].startswith("PReLU"):
+            return "params", mods, "negative_slope"
+        return "params", mods, "scale"  # BatchNorm, GroupNorm
+    raise ValueError(f"no flax leaf for {name!r}")
+
+
+def params_to_jax(state_dict) -> Dict[str, np.ndarray]:
+    """State dict -> ``{keystr: float32 array}`` of the flax variables tree,
+    in the order ``jax.tree_util.tree_flatten_with_path`` gives its leaves
+    (dict keys sorted at each level): the inverse of ``params_from_jax``."""
+    leaves = []
+    for name, t in state_dict.items():
+        arr = t.detach().to(torch.float32).cpu().numpy()
+        col, mods, leaf = _flax_path(name, arr.ndim)
+        leaves.append(((col, *mods, leaf), _to_flax_layout(leaf, arr)))
+    leaves.sort(key=lambda kv: kv[0])
+    return {"".join(f"['{p}']" for p in path): np.array(arr, order="C")
+            for path, arr in leaves}

@@ -4,31 +4,41 @@ Port of ``morefusion_tpu/training/trainer.py`` (``CadPointBank``,
 ``make_train_step``, ``make_eval_step``, ``create_train_state``,
 ``stack_examples``) on one device:
 
-- Adam at 1e-4 (``torch.optim.Adam``; betas 0.9 / 0.999 and eps 1e-8 are
-  optax's defaults too);
+- Adam (``torch.optim.Adam``; betas 0.9 / 0.999 and eps 1e-8 are optax's
+  defaults too) at a learning rate that is a number or a schedule of the
+  step (a ``LambdaLR`` stepped after each update, so the update of step
+  ``n`` uses ``schedule(n)``, as ``optax.adam(schedule)`` does);
 - the ``add -> add/add_s`` schedule is the ``use_symmetric`` argument of
   the step, ANDed with the per-class symmetry table;
 - the CAD point banks live on the device as ``(n_class + 1, N, 3)`` tables
   indexed by the one-based class id (row 0, the background, is zeros);
-- each step draws its sampling and dropout masks from two generators
+- each step draws its sampling, dropout and augmentation from generators
   derived from ``(seed, step)``, where the JAX step folds the step into its
-  key and splits it.
+  key and splits it;
+- ``occupancy_loss_term`` adds the occupancy reward / penalty (the
+  ``+occupancy`` losses); it defaults to the model's occupancy branch, as
+  JAX's defaults to ``with_occupancy``;
+- ``augment=True`` runs ``augment_device.augment_batch`` on the batch's rgb
+  and pcd inside the step.
 
 Fixed where the JAX functions take arguments: 500 CAD points per class
-from seed 0, the confidence weight 0.015, the occupancy term at scale 1
-whenever the model has the occupancy branch. The JAX step's ``augment``,
-``transfer_schema`` and ``axis_name`` options and its data-parallel steps
-are not ported.
+from seed 0, the confidence weight 0.015, the occupancy term at scale 1.
+The JAX step's ``transfer_schema`` and ``axis_name`` options and its
+data-parallel steps are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, Optional, Union
+
 import numpy as np
 import torch
 
 from ..datasets.ycb_video.class_names import symmetric_flags
 from ..models import losses as losses_module
+from . import augment_device
 
 EVAL_SEED = 1234  # the JAX eval step's fixed sampling key
 N_CAD_POINTS = 500  # CAD points per class in the bank
@@ -102,23 +112,58 @@ class CadPointBank:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters), its optimizer and the step count."""
+    """The model (its parameters), its optimizer, its learning-rate
+    schedule and the step count."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
 
 
-def create_train_state(model) -> TrainState:
-    optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE,
+def create_train_state(
+    model, learning_rate: Union[float, Callable[[int], float]] = LEARNING_RATE
+) -> TrainState:
+    """Adam on ``model``'s parameters at ``learning_rate``: a number, or a
+    function of the step count before the update (an optax schedule's
+    contract)."""
+    if callable(learning_rate):
+        base, factor = 1.0, (lambda count: float(learning_rate(count)))
+    else:
+        base, factor = float(learning_rate), (lambda count: 1.0)
+    optimizer = torch.optim.Adam(model.parameters(), lr=base,
                                  betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model=model, optimizer=optimizer)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    """``optax.warmup_cosine_decay_schedule``: a linear warmup from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    decay to ``end_value`` at ``decay_steps`` (the warmup included), as a
+    function of the step count."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("the cosine decay needs decay_steps > warmup_steps")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = float(decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(float(count - warmup_steps), cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def step_generators(seed: int, step: int, device):
-    """The (sampling, dropout) generators of one step, on ``device``, derived
-    from ``(seed, step)`` alone."""
-    states = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
+    """The (sampling, dropout, augmentation) generators of one step, on
+    ``device``, derived from ``(seed, step)`` alone."""
+    states = np.random.SeedSequence([seed, step]).generate_state(3, np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(int(s))
                  for s in states)
 
@@ -141,9 +186,12 @@ def _model_inputs(model, batch):
     return kwargs
 
 
-def make_loss_fn(model, bank: CadPointBank):
+def make_loss_fn(model, bank: CadPointBank,
+                 occupancy_loss_term: Optional[bool] = None,
+                 augment: bool = False):
     """The train step's loss: ``loss_fn(batch, use_symmetric, *, train=True,
-    sample_generator=None, dropout_generator=None) -> (loss, metrics)``.
+    sample_generator=None, dropout_generator=None,
+    augment_generator=None) -> (loss, metrics)``.
 
     Batch contract (fixed shapes; arrays or tensors, moved to the model's
     device here): class_id (B,) int; rgb (B, H, W, 3) f32; pcd (B, H, W, 3)
@@ -153,12 +201,21 @@ def make_loss_fn(model, bank: CadPointBank):
     which the model then uses in place of drawing its own.
 
     A model with the occupancy branch (``model.with_occupancy``) gets the
-    occupancy grids, and the occupancy reward / penalty joins the loss.
+    occupancy grids. The occupancy reward / penalty joins the loss when
+    ``occupancy_loss_term`` (default: the model's occupancy branch).
+    ``augment`` augments rgb and pcd with ``augment_generator``
+    (``augment_device.augment_batch``).
     """
+    if occupancy_loss_term is None:
+        occupancy_loss_term = model.with_occupancy
 
     def loss_fn(batch, use_symmetric, *, train: bool = True,
-                sample_generator=None, dropout_generator=None):
+                sample_generator=None, dropout_generator=None,
+                augment_generator=None):
         batch = _to_device(batch, _device_of(model))
+        if augment:
+            batch["rgb"], batch["pcd"] = augment_device.augment_batch(
+                augment_generator, batch["rgb"], batch["pcd"])
         quat, trans, conf = model(
             **_model_inputs(model, batch), generator=sample_generator,
             train=train, dropout_generator=dropout_generator)
@@ -173,7 +230,7 @@ def make_loss_fn(model, bank: CadPointBank):
             symmetric=bank.symmetric[cid] & use_symmetric,
         )
         metrics = {"loss_add": loss}
-        if model.with_occupancy:
+        if occupancy_loss_term:
             occ = losses_module.occupancy_loss(
                 quaternion_pred=quat,
                 translation_pred=trans,
@@ -194,23 +251,29 @@ def make_loss_fn(model, bank: CadPointBank):
     return loss_fn
 
 
-def make_train_step(model, bank: CadPointBank):
+def make_train_step(model, bank: CadPointBank,
+                    occupancy_loss_term: Optional[bool] = None,
+                    augment: bool = False):
     """``train_step(state, batch, use_symmetric, seed=0) -> (state,
-    metrics)``: one Adam step on the loss of ``make_loss_fn(model, bank)``
-    with dropout on. ``state`` is updated in place and returned;
-    ``metrics`` are detached scalars on the device.
+    metrics)``: one Adam step on the loss of ``make_loss_fn(model, bank,
+    occupancy_loss_term, augment)`` with dropout on, at the schedule's
+    learning rate for ``state.step``. ``state`` is updated in place and
+    returned; ``metrics`` are detached scalars on the device.
     """
-    loss_fn = make_loss_fn(model, bank)
+    loss_fn = make_loss_fn(model, bank, occupancy_loss_term, augment)
 
     def train_step(state: TrainState, batch, use_symmetric, seed: int = 0):
         device = _device_of(state.model)
-        sample_gen, dropout_gen = step_generators(seed, state.step, device)
+        sample_gen, dropout_gen, augment_gen = step_generators(
+            seed, state.step, device)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, use_symmetric,
                                 sample_generator=sample_gen,
-                                dropout_generator=dropout_gen)
+                                dropout_generator=dropout_gen,
+                                augment_generator=augment_gen)
         loss.backward()
         state.optimizer.step()
+        state.scheduler.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

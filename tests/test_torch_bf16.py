@@ -315,3 +315,70 @@ def test_interpolate_voxel_grid_bf16_matches_jax(rng):
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=0.02)
+
+
+def test_bf16_train_step_within_jax_bf16_gap(rng):
+    """The train step's loss (ADD(-S) and the occupancy term) and gradients
+    in bf16 (the tiny occupancy model, ``test_torch_train.py``'s batch and
+    bank, dropout off, the same ``sample_indices``): the port's bf16 no
+    farther from JAX's bf16 than JAX's bf16 is from JAX's fp32, for the
+    loss and for the whole gradient (its norm over all parameters)."""
+    from morefusion_tpu.models import losses as JL
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.training import trainer as TT
+    from tests.test_torch_model import _flax_to_np
+    from tests.test_torch_train import _batch, _jax_bank
+
+    batch = _batch(rng)
+    bank = TT.CadPointBank.build(ProceduralModels(), 21,
+                                 max_solid_points=400, device="cpu")
+    cfg = dict(n_point=32, with_occupancy=True)
+    variables, _ = carried(lambda: TM.tiny_singleview3d(21, **cfg))
+    tmodel = TM.tiny_singleview3d(21, compute_dtype=torch.bfloat16, **cfg)
+    tmodel.load_state_dict(TM.variables_from_jax(jax.tree_util.tree_map(
+        np.asarray, variables)), strict=True)
+    loss, _ = TT.make_loss_fn(tmodel, bank)(
+        batch, True, train=False)
+    loss.backward()
+    tgrads = {k: p.grad for k, p in tmodel.named_parameters()}
+
+    jbank = _jax_bank(bank)
+    cid = batch["class_id"]
+    inputs = {k: batch[k] for k in (
+        "class_id", "rgb", "pcd", "pitch", "origin", "grid_nontarget_empty",
+        "sample_indices")}
+
+    def jloss(params, dtype):
+        quat, trans, conf = JM.tiny_singleview3d(
+            21, compute_dtype=dtype, **cfg).apply(params, **inputs)
+        total = JL.pose_loss(
+            quaternion_pred=quat, translation_pred=trans,
+            confidence_pred=conf, quaternion_true=batch["quaternion_true"],
+            translation_true=batch["translation_true"],
+            cad_points=jbank.points[cid], symmetric=jbank.symmetric[cid])
+        return total + JL.occupancy_loss(
+                quaternion_pred=quat, translation_pred=trans,
+                confidence_pred=conf, solid_points=jbank.solid_points[cid],
+                solid_sdf=jbank.solid_sdf[cid],
+                solid_mask=jbank.solid_mask[cid], pitch=batch["pitch"],
+                origin=batch["origin"], grid_target=batch["grid_target"],
+                grid_nontarget_empty=batch["grid_nontarget_empty"])
+
+    out = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        value, grads = jax.jit(jax.value_and_grad(jloss), static_argnums=1)(
+            variables, dt)
+        out[dt] = float(value), TM.params_from_jax(_flax_to_np(grads))
+
+    def flat(g):
+        return torch.cat([g[k].reshape(-1).double() for k in sorted(g)])
+
+    (l32, g32), (l16, g16) = out[jnp.float32], out[jnp.bfloat16]
+    loss_gap, loss_err = abs(l16 - l32), abs(float(loss.detach()) - l16)
+    grad_gap = float((flat(g16) - flat(g32)).norm())
+    grad_err = float((flat(tgrads) - flat(g16)).norm())
+    print(f"loss: gap {loss_gap} err {loss_err}; "
+          f"gradient: gap {grad_gap} err {grad_err}")
+    assert loss_gap > 0 and grad_gap > 0  # JAX's bf16 did compute in bf16
+    assert loss_err <= loss_gap, (loss_err, loss_gap)
+    assert grad_err <= grad_gap, (grad_err, grad_gap)

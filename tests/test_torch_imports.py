@@ -51,7 +51,18 @@ def test_port_sources_exist():
                    "simulation/scene_generation.py", "extra/render.py",
                    "geometry/cameras.py", "geometry/trajectory.py",
                    "models/layers.py", "models/convert_torch.py",
-                   "models/segmentation.py", "ops/connected_components.py"):
+                   "models/segmentation.py", "ops/connected_components.py",
+                   "extra/image.py", "datasets/transform.py",
+                   "datasets/packed.py",
+                   "datasets/rgbd_pose_estimation/base.py",
+                   "datasets/rgbd_pose_estimation/synthetic.py",
+                   "datasets/rgbd_pose_estimation/augmentation.py",
+                   "datasets/rgbd_pose_estimation/reindex.py",
+                   "datasets/rgbd_pose_estimation/reindexed.py",
+                   "training/augment_device.py", "training/data.py",
+                   "training/evaluator.py", "training/reporting.py",
+                   "training/checkpoints.py", "training/loop.py",
+                   "cli/train.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 
