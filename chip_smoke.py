@@ -5,16 +5,19 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc`` and makes phase 11's data, then runs eleven
+and ``knn.cu``) with ``nvcc`` and makes phase 11's data, then runs twelve
 phases, each printing one JSON line (with ``elapsed_s``, the seconds since
 the start):
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
    points, an empty lane, all lanes empty, ragged P, a prime P, a grid its
-   voxel tile does not divide, exact ties across its point splits) and at
+   voxel tile does not divide, exact ties across its point splits), at
    the train step's shape (16 lanes x 3000 solid CAD points under a pose,
-   32^3 voxels): d2 bits, winners and payloads identical in every case;
+   32^3 voxels) and at the evaluation's (ICC's exact cross mode: 8 and 16
+   lanes of all objects' 2048 points, P = 16,384 and 32,768, each lane's
+   own object masked; 8 lanes of 2048 points at 64^3 and 96^3): d2 bits,
+   winners and payloads identical in every case;
 2. serving: ``PoseEstimationNode.estimate`` with the committed occupancy
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
    instances, against the same node on the CPU, then timed; then the node
@@ -37,8 +40,9 @@ the start):
    refine with the plain version in deterministic mode (losses and poses
    identical), then timed; its kernel launches are counted (one an
    iteration);
-4. min-distance kernel timing at the ICC and the train step's shapes,
-   beside the plain version, one PyTorch yardstick, the card's bound and
+4. min-distance kernel timing at the ICC, the train step's and phase
+   1's evaluation shapes, beside the plain version, one PyTorch yardstick
+   (where its matrix fits in ``LIBRARY_MAX_BYTES``), the card's bound and
    the wrapper's host time a call;
 5. knn kernel vs plain: the nearest-neighbour kernel against its plain
    version at the training shape (16 lanes x 500,000 queries x 500 CAD
@@ -120,7 +124,23 @@ the start):
    rate (``sps``, ``sps_window`` beside phase 6's bare step), the host's
    batch preparation, copy and wait, the ms of an evaluation batch and of
    the checkpoint saves, the final AUC and the kernel launches of runs A
-   and B.
+   and B;
+12. the offline evaluation on phase 11's val set, with run directories of
+   the committed occ and noocc checkpoints and their ``args.json``:
+   ``cli.eval_sweep`` over the occupancy ablation's four entries and
+   ``cli.ablation_report``'s table (with the paired bootstrap), then
+   ``cli.evaluate`` (raw, +icp, +icc, +icc+icp, joint ICC) by default, in
+   the exact cross mode and at ``--icc-grid-scale 2`` coarse to fine with
+   the rate decay, and at ``--icc-grid-scale 3`` (96^3) on
+   ``EVAL_FULL["scale3_examples"]`` crops: each method's AUCs, the refine
+   loop's frames a second, the kernels' launches by shape and the peak
+   memory; one frame's joint ICC problem in exact mode and at scale 2 with
+   the kernels against the plain versions in deterministic mode (losses
+   and poses identical); the card against the CPU: the raw records of a
+   few crops with the same pixel draw (ADDs within ``POSE_ATOL``) and the
+   exact-mode problem replayed for ``ICC_REPLAY_ITERATIONS`` (within phase
+   9's replay bounds or twice the CPU's own spread under a start jitter,
+   see ``exact_replay``).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -343,6 +363,49 @@ def min_dist_bound(ip, valid, dims):
     return bytes_s * 1e3, "bytes"
 
 
+def eval_min_dist_inputs(seed, case, N, M, V, device):
+    """The kernel's inputs as the evaluation's ICC forms them: ``N``
+    objects of ``M`` points side by side, each lane in its own object's
+    ``V^3`` frame (pitch and origin centred on it). ``case`` "exact": every
+    lane holds all ``N * M`` points with its own object's masked (the exact
+    cross mode); "resample": each lane its own object's points (the own
+    grids, and the resample mode's only voxelization). 10% of the points
+    are padding."""
+    g = np.random.RandomState(seed)
+    centres = np.stack([[0.09 * (j % 4), 0.09 * (j // 4), 0.8]
+                        for j in range(N)])
+    pts = centres[:, None] + g.uniform(-0.04, 0.04, (N, M, 3))
+    pad = g.rand(N, M) < 0.1
+    pitch = 2.4 * 0.04 * np.sqrt(3) / V
+    origin = centres - pitch * (V / 2.0 - 0.5)
+    if case == "exact":
+        lanes = (pts.reshape(1, N * M, 3) - origin[:, None]) / pitch
+        owner = np.repeat(np.arange(N), M)
+        valid = (~pad.reshape(1, N * M)) & (owner[None] != np.arange(N)[:, None])
+    else:
+        lanes = (pts - origin[:, None]) / pitch
+        valid = ~pad
+    payload = g.randint(0, 1 << 14, valid.shape).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (lanes.astype(np.float32), valid, payload))
+
+
+def eval_min_dist_cases(small):
+    """The evaluation's new kernel shapes: ``(case, N objects, M points,
+    V)``. Exact mode at 8 and 16 objects of 2048 points (P = 16,384 and
+    32,768, beyond the TPU kernel's 16,384), and the own grids at 64^3 and
+    96^3 (``--icc-grid-scale`` 2 and 3)."""
+    if small:
+        return (("exact_p16384", "exact", 4, 128, 16),
+                ("exact_p32768", "exact", 8, 128, 16),
+                ("resample_v64", "resample", 4, 128, 24),
+                ("resample_v96", "resample", 4, 128, 32))
+    return (("exact_p16384", "exact", 8, 2048, 32),
+            ("exact_p32768", "exact", 16, 2048, 32),
+            ("resample_v64", "resample", 8, 2048, 64),
+            ("resample_v96", "resample", 8, 2048, 96))
+
+
 def compare_min_dist(out, ref, what):
     """Kernel output ``out`` against the plain version's ``ref``: the same
     d2 bits, winners and payloads in every voxel. Returns the largest d2
@@ -399,12 +462,21 @@ def phase_kernel_vs_plain(device, small, train_inputs):
              ("overflow", 3, 700 if not small else 70, ROOT_DIMS),
              ("all_masked", 2, P, ROOT_DIMS), ("one_point", 2, 1, odd),
              ("train", None, None, ROOT_DIMS)]
+    cases += [(case, None, None, None)
+              for case, *_ in eval_min_dist_cases(small)]
+    eval_cases = {c[0]: c[1:] for c in eval_min_dist_cases(small)}
     results = []
     max_err = 0.0
     for seed, (case, b, p, dims) in enumerate(cases):
         if case == "train":
             ip, valid, payload = train_inputs
             b, p = ip.shape[:2]
+        elif case in eval_cases:
+            mode, N, M, V = eval_cases[case]
+            ip, valid, payload = eval_min_dist_inputs(seed, mode, N, M, V,
+                                                      device)
+            b, p = ip.shape[:2]
+            dims = (V, V, V)
         else:
             ip, valid, payload = min_dist_inputs(seed, b, p, case, device)
         out = md.min_dist_voxels(ip, valid, payload, dims)
@@ -417,9 +489,13 @@ def phase_kernel_vs_plain(device, small, train_inputs):
         if case == "overflow":
             check(bool((ref[1][0] == -1).all()),
                   "min_dist overflow: an overflowing point won")
+        if case.startswith("exact"):
+            check(bool((ref[1] >= 0).any()),
+                  f"min_dist {case}: no voxel found a point")
         max_err = max(max_err, err)
         results.append(dict(case=case, B=b, P=p, dims=list(dims),
                             max_abs_err=err, voxels_differing=n_diff))
+        del out, ref, ip, valid, payload
     emit(dict(phase="kernel_vs_plain", ok=True, cases=results,
               tolerance="identical d2 bits, winners and payloads"))
     return max_err
@@ -978,47 +1054,67 @@ def phase_icc(device, small, counts):
 # --------------------------------------------------------------- phase 4
 
 
-def min_dist_timing(device, ip, valid, payload, reps):
+# torch.cdist's (B, V, P) float32 matrix, the yardstick's, above this is
+# not timed
+LIBRARY_MAX_BYTES = 20e9
+
+
+def min_dist_timing(device, ip, valid, payload, reps, dims=ROOT_DIMS,
+                    plain_reps=5):
     """One shape's row: the bound and, on the card, the kernel's, the plain
     version's and the yardstick's times, and the wrapper's host time."""
     from morefusion_tpu_torch.ops import min_dist as md
 
     B, P, _ = ip.shape
-    bound_ms, bound_by = min_dist_bound(ip, valid, ROOT_DIMS)
-    pairs = min_dist_pairs(ip, valid, ROOT_DIMS)
-    row = dict(shape=dict(B=B, P=P, dims=ROOT_DIMS), pairs=pairs,
+    bound_ms, bound_by = min_dist_bound(ip, valid, dims)
+    pairs = min_dist_pairs(ip, valid, dims)
+    row = dict(shape=dict(B=B, P=P, dims=list(dims)), pairs=pairs,
                bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
         row.update(kernel_ms=None, plain_ms=None, library_ms=None,
                    slots_per_pair=None, host_ms=None)
         return row
-    centers = md.voxel_centers(ROOT_DIMS, device)[None].expand(B, -1, -1)
+    centers = md.voxel_centers(dims, device)[None].expand(B, -1, -1)
 
     def kernel():
-        return md.min_dist_voxels(ip, valid, payload, ROOT_DIMS)
+        return md.min_dist_voxels(ip, valid, payload, dims)
 
     kernel_ms = cuda_ms(kernel, reps)
+    fits = B * centers.shape[1] * P * 4 <= LIBRARY_MAX_BYTES
     row.update(
         kernel_ms=kernel_ms,
         host_ms=host_ms(kernel, reps),
         slots_per_pair=kernel_ms * 1e-3 * ISSUE_SLOTS_PER_S / pairs,
         plain_ms=cuda_ms(
-            lambda: md.min_dist_voxels_plain(ip, valid, payload, ROOT_DIMS),
-            5),
+            lambda: md.min_dist_voxels_plain(ip, valid, payload, dims),
+            plain_reps, warmup=1),
         # yardstick only, never called by the port: two PyTorch calls,
         # with no mask and no payload
-        library_ms=cuda_ms(lambda: torch.cdist(centers, ip).min(dim=2), 5),
+        library_ms=(cuda_ms(lambda: torch.cdist(centers, ip).min(dim=2),
+                            plain_reps, warmup=1) if fits else None),
     )
+    if not fits:
+        row["library_note"] = (f"cdist's {B}x{centers.shape[1]}x{P} matrix "
+                               f"exceeds {LIBRARY_MAX_BYTES:.0e} bytes")
+    torch.cuda.empty_cache()
     return row
 
 
 def phase_kernel_timing(device, small, train_inputs):
-    """The min-distance kernel at the ICC shape and at the train step's."""
+    """The min-distance kernel at the ICC shape, at the train step's and
+    at the evaluation's new shapes."""
     B, P = (8, 2048) if not small else (2, 300)
     icc = min_dist_timing(
         device, *min_dist_inputs(0, B, P, "icc", device), 100)
     train = min_dist_timing(device, *train_inputs, 50)
+    evaluation = {}
+    for seed, (case, mode, N, M, V) in enumerate(eval_min_dist_cases(small)):
+        inputs = eval_min_dist_inputs(seed, mode, N, M, V, device)
+        evaluation[case] = min_dist_timing(device, *inputs, 20, (V, V, V),
+                                           plain_reps=2)
+        del inputs
     row = dict(phase="kernel_timing", **icc, train=train,
+               evaluation=evaluation,
                library_call="torch.cdist(centers, points).min(dim=2) "
                             "(two calls)")
     if device.type != "cuda":
@@ -2647,6 +2743,398 @@ def phase_fit(device, small, counts, data, root, bare_step_ms):
     return fit_launches, launches_b
 
 
+# -------------------------------------------------------------- phase 12
+
+# the evaluation (phase 12): phase 11's packed val set; the committed occ
+# and noocc checkpoints with their args as run directories
+EVAL_RUNS = ("occ", "noocc")
+EVAL_SWEEP = ("occ:observed", "occ:nontarget_full", "occ:full_bg",
+              "noocc:observed")
+EVAL_METHODS = ("morefusion", "morefusion+icp", "morefusion+icc",
+                "morefusion+icc+icp")
+EVAL_FULL = dict(n_examples=None, scale3_examples=12, iterations=30,
+                 cpu_examples=8, n_boot=200)
+EVAL_SMALL = dict(n_examples=4, scale3_examples=None, iterations=2,
+                  cpu_examples=2, n_boot=20, icc_points=128)
+
+
+def eval_runs(root, small):
+    """Run directories of ``args.json`` and the best archive: the committed
+    occ and noocc checkpoints (seeded tiny models in the rehearsal)."""
+    from morefusion_tpu_torch import models
+    from morefusion_tpu_torch.training import export_params_npz
+
+    best = "snapshot_model_best_validation_main_auc.npz"
+    for name in EVAL_RUNS:
+        run = os.path.join(root, name)
+        os.makedirs(run)
+        if small:
+            torch.manual_seed(len(name))
+            export_params_npz(models.tiny_singleview3d(
+                21, n_point=64, with_occupancy=name == "occ"),
+                os.path.join(run, best))
+            args = dict(tiny=True, n_point=64, with_occupancy=name == "occ",
+                        loss="add/add_s")
+        else:
+            src = os.path.join(ROOT, "docs", "results", name)
+            os.symlink(src + "_best_bf16.npz", os.path.join(run, best))
+            args = read_json(src + "_args.json")
+        with open(os.path.join(run, "args.json"), "w") as f:
+            json.dump(args, f)
+    return root
+
+
+class ShapeRecorder:
+    """Counts each kernel wrapper's calls by shape while it is active (ICP's
+    knn calls, whose shapes are each object's clouds, as one entry). The
+    wrappers count their launches in an attribute of their module's name,
+    which points at the recorder meanwhile: on exit the recorder hands its
+    count to the wrapper."""
+
+    def __init__(self):
+        from morefusion_tpu_torch.ops import knn
+        from morefusion_tpu_torch.ops import min_dist as md
+
+        self.shapes = {"min_dist_voxels": {}, "nn_indices": {}}
+        self._targets = ((md, "min_dist_voxels", lambda ip, v, p, dims, *a:
+                          f"B={ip.shape[0]} P={ip.shape[1]} "
+                          f"V={'x'.join(map(str, dims))}"),
+                         (knn, "nn_indices", lambda ref, query, *a, **k:
+                          f"B={ref.shape[0]} R={ref.shape[1]} "
+                          f"Q={query.shape[1]}" if ref.shape[0] > 1
+                          else "B=1 (ICP, one object's clouds)"))
+        self._patches = []
+
+    def __enter__(self):
+        for module, name, key in self._targets:
+            real = getattr(module, name)
+            shapes = self.shapes[name]
+
+            def recorder(*a, _real=real, _key=key, _shapes=shapes, **k):
+                s = _key(*a, **k)
+                _shapes[s] = _shapes.get(s, 0) + 1
+                return _real(*a, **k)
+
+            recorder.launches = 0
+            patch = mock.patch.object(module, name, recorder)
+            patch.start()
+            self._patches.append((patch, real, recorder))
+        return self
+
+    def __exit__(self, *exc):
+        for patch, real, recorder in self._patches:
+            patch.stop()
+            real.launches += recorder.launches
+        self._patches = []
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: ``(result, lines)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def fixed_sampling(mask, n_point, generator=None):
+    """The model's point draw with its scores drawn on the CPU from a
+    seeded generator, so that the card and the CPU sample the same
+    pixels."""
+    B, H, W = mask.shape
+    flat = mask.reshape(B, H * W)
+    scores = torch.rand((B, H * W), generator=torch.Generator().manual_seed(
+        1234)).to(mask.device)
+    scores = torch.where(flat, scores, float("-inf"))
+    idx = torch.topk(scores, n_point, dim=1).indices
+    n_valid = flat.sum(dim=1, keepdim=True).clamp_min(1)
+    slot = torch.arange(n_point, device=mask.device)[None, :]
+    return torch.gather(idx, 1, torch.where(slot < n_valid, slot,
+                                            slot % n_valid))
+
+
+def evaluate_run(device, counts, argv):
+    """``cli.evaluate.main(argv)`` on the card, counted: its summary, info,
+    launches and shapes, peak memory and stdout."""
+    from morefusion_tpu_torch.cli import evaluate
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for c in counts:
+        c.launches = 0
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        (summary, records, info), lines = quiet(
+            evaluate.main, argv + ["--device", device.type])
+        wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    n_frames = info.get("n_frames")
+    row = dict(
+        argv=argv, wall_s=wall_s, n_examples=info["n_examples"],
+        n_frames=n_frames,
+        refine_frames_per_s=(n_frames / info["refine_s"]
+                             if n_frames else None),
+        icc_ms_per_frame=(info["icc_s"] / n_frames * 1e3
+                          if n_frames else None),
+        icp_ms_per_frame=(info["icp_s"] / n_frames * 1e3
+                          if n_frames else None),
+        launches=launches, shapes=rec.shapes,
+        max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        auc={m: dict(add_or_add_s=s["main/add_or_add_s/auc"],
+                     add_s=s["main/add_s/auc"],
+                     lt_2cm=s["main/add_or_add_s/<2cm"])
+             for m, s in summary.items()},
+        stdout_tail=lines[-len(summary):])
+    for m, s in summary.items():
+        check(all(np.isfinite([r["add"], r["add_s"]]).all()
+                  for r in records[m]) and len(records[m]) ==
+              info["n_examples"], f"evaluation {argv}: bad records of {m}")
+    return row
+
+
+def first_frame(ds, lo, hi):
+    """The crop indices of the first frame of ``lo`` to ``hi`` crops, else
+    of the largest frame."""
+    from morefusion_tpu_torch.cli import _eval
+
+    frames = list(_eval.frames_of(ds, len(ds)).values())
+    for idxs in frames:
+        if lo <= len(idxs) <= hi:
+            return idxs
+    return max(frames, key=len)
+
+
+def icc_frame_problem(device, run, data, idxs):
+    """One frame's joint ICC problem as ``cli.evaluate`` forms it: the occ
+    model's start poses (the card's) and the problem's arrays."""
+    from morefusion_tpu_torch import training
+    from morefusion_tpu_torch.cli import _eval, evaluate
+    from morefusion_tpu_torch.datasets import ProceduralModels, Transform
+
+    args = evaluate.parse_args(["--log-dir", run, "--data", data])
+    train_args = training.load_args(run)
+    model = _eval.restore(_eval.build_model(train_args, device), run)
+    ds = _eval.open_val(data)
+    transform = Transform(train=False, with_occupancy=True,
+                          eval_case=_eval.EVAL_CASES["observed"])
+    T_pred = evaluate.predict_all(args, ds, transform, model, max(idxs) + 1)
+    exs = [transform(ds[i]) for i in idxs]
+    return ([T_pred[i] for i in idxs],
+            evaluate.icc_problem(exs, ProceduralModels()))
+
+
+def icc_args(run, data, mode, iterations):
+    from morefusion_tpu_torch.cli import evaluate
+
+    return evaluate.parse_args([
+        "--log-dir", run, "--data", data, "--icc-cross-mode", mode,
+        "--icc-iterations", str(iterations)])
+
+
+def exact_replay(device, run, data, T0, problem):
+    """One exact-mode ICC problem replayed for ``ICC_REPLAY_ITERATIONS``
+    on the card and on the CPU from the same starts. On the model's poses
+    this objective is as sensitive as phase 9's full refine: a 1e-7 m move
+    of the starts moves the CPU's own first loss, and its poses and losses
+    after 5 iterations, by about phase 9's replay bounds (the phase prints
+    that spread). So each of the first loss, the poses and the losses is
+    held within phase 9's replay bound, or where the CPU's own spread is
+    wider, within twice that spread: the largest move of the CPU's result
+    when its start translations move by ``ICC_START_JITTER`` (phase 9's
+    ``ICC_JITTER_RUNS`` draws; the card's rounding is no rigid move of the
+    starts)."""
+    from morefusion_tpu_torch.cli import evaluate
+
+    args = icc_args(run, data, "exact", ICC_REPLAY_ITERATIONS)
+
+    def refine(dev, rng=None):
+        starts = [np.array(T, dtype=np.float64) for T in T0]
+        if rng is not None:
+            for T in starts:
+                T[:3, 3] += rng.normal(0, ICC_START_JITTER, 3)
+        return evaluate.run_icc(args, starts, problem, 1, dev)
+
+    def apart(a, b):
+        (T_a, l_a, _), (T_b, l_b, _) = a, b
+        return dict(first_loss=abs(float(l_a[0] - l_b[0])),
+                    pose=float(np.abs(T_a - T_b).max()),
+                    loss=float(np.abs(l_a - l_b).max()))
+
+    card, cpu = refine(device), refine("cpu")
+    err = apart(card, cpu)
+    rng = np.random.RandomState(0)
+    runs = [apart(refine("cpu", rng), cpu) for _ in range(ICC_JITTER_RUNS)]
+    spread = {k: max(r[k] for r in runs) for k in err}
+    n_g, n_c = card[2], cpu[2]
+    fixed = dict(first_loss=ICC_LOSS_ATOL, pose=PIPE_POSE_ATOL,
+                 loss=ICC_LOSS_ATOL)
+    bound = {k: max(fixed[k], 2 * spread[k]) for k in fixed}
+    check(n_g == n_c and all(err[k] <= bound[k] for k in err),
+          f"evaluation: exact ICC replay card vs CPU {err}, n_iter {n_g} / "
+          f"{n_c}; bounds {bound} (the CPU's spread {spread})")
+    return dict(iterations=ICC_REPLAY_ITERATIONS, err=err,
+                cpu_jitter_spread=spread, jitter=ICC_START_JITTER,
+                jitter_runs=ICC_JITTER_RUNS, bound=bound)
+
+
+def phase_evaluation(device, small, counts, fit_root):
+    """The offline evaluation CLIs on phase 11's val set: the sweep and the
+    ablation table, ``evaluate`` three ways and at 96^3, ICC kernel against
+    plain, the card against the CPU. The rehearsal keeps
+    ``EVAL_SMALL["icc_points"]`` points an object in ICC (the CLI asks for
+    2048)."""
+    if not small:
+        return run_evaluation(device, small, counts, fit_root)
+    from morefusion_tpu_torch import contrib
+
+    class FewerPoints(contrib.IterativeCollisionCheck):
+        def __init__(self, *args, **kw):
+            kw["max_points"] = EVAL_SMALL["icc_points"]
+            super().__init__(*args, **kw)
+
+    with mock.patch.object(contrib, "IterativeCollisionCheck", FewerPoints):
+        return run_evaluation(device, small, counts, fit_root)
+
+
+def run_evaluation(device, small, counts, fit_root):
+    import shutil
+
+    from morefusion_tpu_torch.cli import _eval, ablation_report, eval_sweep
+    from morefusion_tpu_torch.cli import evaluate
+    from morefusion_tpu_torch.models import singleview_3d as sv3d
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    cfg = EVAL_SMALL if small else EVAL_FULL
+    root = os.path.join(fit_root, "eval")
+    runs = eval_runs(os.path.join(root, "runs"), small)
+    data = os.path.join(root, "val_packed")
+    os.symlink(os.path.join(fit_root, "val"), data)
+    out_dir = os.path.join(root, "sweep")
+    os.makedirs(out_dir)
+    occ = os.path.join(runs, "occ")
+    n_ex = ([] if cfg["n_examples"] is None
+            else ["--n-examples", str(cfg["n_examples"])])
+    iters = ["--icc-iterations", str(cfg["iterations"])]
+    common = ["--log-dir", occ, "--data", data, "--methods",
+              *EVAL_METHODS] + iters
+
+    # the main path, counted: the sweep, the table, evaluate three ways
+    # and at 96^3
+    seconds = {}
+    t_phase = time.perf_counter()
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    (_, sweep_lines) = quiet(eval_sweep.main, [
+        "--runs-root", runs, "--out-dir", out_dir, "--device", device.type,
+        "--sweep", *[f"{e}:{data}" for e in EVAL_SWEEP]])
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = {c.__name__: c.launches for c in counts}
+    found, table = quiet(ablation_report.main, [
+        "--runs", out_dir, "--n-boot", str(cfg["n_boot"])])
+    check(len(found) == 4 and all(np.isfinite(
+        s["main/add_or_add_s/auc"]) for s in found.values()),
+        f"evaluation: ablation rows {list(found)}")
+    runs_out = {
+        "resample": evaluate_run(device, counts, common + n_ex),
+        "exact": evaluate_run(device, counts, common + n_ex + [
+            "--icc-cross-mode", "exact"]),
+        "scale2_coarse_to_fine_decay": evaluate_run(
+            device, counts, common + n_ex + [
+                "--icc-grid-scale", "2", "--icc-coarse-to-fine",
+                "--icc-alpha-decay"]),
+    }
+    if cfg["scale3_examples"]:
+        runs_out["scale3"] = evaluate_run(device, counts, common + [
+            "--n-examples", str(cfg["scale3_examples"]),
+            "--icc-grid-scale", "3"])
+    launches = {k: sweep_launches[k] + sum(r["launches"][k]
+                                           for r in runs_out.values())
+                for k in sweep_launches}
+    seconds["main_path"] = time.perf_counter() - t_phase
+    if device.type == "cuda":
+        for name in ("resample", "exact"):
+            r = runs_out[name]
+            check(r["launches"]["min_dist_voxels"] > 0
+                  and r["launches"]["nn_indices"] > 0,
+                  f"evaluation {name}: launches {r['launches']}")
+        exact = runs_out["exact"]["shapes"]["min_dist_voxels"]
+        check(any(int(k.split()[1][2:]) > 2048 for k in exact),
+              f"evaluation exact: no lane of all objects' points: {exact}")
+
+    # kernel against plain: one frame's joint problem, in exact mode and
+    # at scale 2, deterministic
+    # (3-4 objects: 4 lanes, so that the CPU's exact replay below stays
+    # within seconds)
+    t0 = time.perf_counter()
+    ds = _eval.open_val(data)
+    idxs = first_frame(ds, 3, 4)
+    T0, problem = icc_frame_problem(device, occ, data, idxs)
+    vs_plain = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, mode, scale in (("exact", "exact", 1),
+                                  ("scale2", "resample", 2)):
+            args = icc_args(occ, data, mode, cfg["iterations"])
+            T_k, l_k, n_k = evaluate.run_icc(args, T0, problem, scale,
+                                             device)
+            with mock.patch.object(md, "min_dist_voxels",
+                                   md.min_dist_voxels_plain):
+                T_p, l_p, n_p = evaluate.run_icc(args, T0, problem, scale,
+                                                 device)
+            loss_err = float(np.abs(l_k - l_p).max())
+            pose_err = float(np.abs(T_k - T_p).max())
+            check(n_k == n_p and loss_err == 0.0 and pose_err == 0.0,
+                  f"evaluation ICC {name}: kernel vs plain n_iter {n_k} / "
+                  f"{n_p}, losses {loss_err}, poses {pose_err} apart")
+            vs_plain[name] = dict(objects=len(idxs), n_iter=n_k,
+                                  loss_err=loss_err, pose_err=pose_err)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seconds["kernel_vs_plain"] = time.perf_counter() - t0
+
+    # the card against the CPU: raw records of a few crops (the same pixel
+    # draw on both), and one exact-mode problem replayed
+    t0 = time.perf_counter()
+    raw = {}
+    with mock.patch.object(sv3d, "sample_mask_indices", fixed_sampling):
+        for dev in (device.type, "cpu"):
+            (summary, records, _), _ = quiet(evaluate.main, [
+                "--log-dir", occ, "--data", data, "--methods", "morefusion",
+                "--n-examples", str(cfg["cpu_examples"]), "--batch-size",
+                str(cfg["cpu_examples"]), "--device", dev])
+            raw[dev] = records["morefusion"]
+    raw_err = max(abs(g[k] - w[k]) for g, w in zip(raw[device.type],
+                                                  raw["cpu"])
+                  for k in ("add", "add_s"))
+    check(raw_err <= POSE_ATOL, f"evaluation: card and CPU ADDs {raw_err} "
+                                "apart")
+    seconds["card_vs_cpu_raw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = exact_replay(device, occ, data, T0, problem)
+    seconds["card_vs_cpu_exact_replay"] = time.perf_counter() - t0
+    shutil.rmtree(root)
+
+    emit(dict(
+        phase="evaluation", ok=True, device=str(device),
+        data=dict(val_crops=len(ds), path="phase 11's val set"),
+        runs="committed occ / noocc checkpoints" if not small
+        else "seeded tiny models",
+        sweep=dict(entries=list(EVAL_SWEEP), s=sweep_s,
+                   launches=sweep_launches, lines=sweep_lines),
+        ablation_table=table,
+        evaluate=runs_out, launches=launches, seconds=seconds,
+        kernel_vs_plain=dict(tolerance="identical", **vs_plain),
+        card_vs_cpu=dict(raw_crops=cfg["cpu_examples"],
+                         raw_max_add_err=raw_err, raw_tolerance=POSE_ATOL,
+                         exact_replay=dict(objects=len(idxs),
+                                           **replay))))
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2729,6 +3217,7 @@ def run_phases(device, small, counts, native_build, fit_root):
                                          frames, model16)
     fit_launches, fit_bf16_launches = phase_fit(
         device, small, counts, fit_data_info, fit_root, bare_step_ms)
+    eval_launches = phase_evaluation(device, small, counts, fit_root)
 
     kernels = [dict(
         name="min_dist", route="cuda",
@@ -2737,14 +3226,16 @@ def run_phases(device, small, counts, native_build, fit_root):
         launches=(icc_launches + train_launches["min_dist_voxels"]
                   + pipeline_launches + pipeline_bf16_launches
                   + segmenter_launches + fit_launches["min_dist_voxels"]
-                  + fit_bf16_launches["min_dist_voxels"]),
+                  + fit_bf16_launches["min_dist_voxels"]
+                  + eval_launches["min_dist_voxels"]),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
                               scene_pipeline_bf16=pipeline_bf16_launches,
                               scene_pipeline_segmenter=segmenter_launches,
                               fit=fit_launches["min_dist_voxels"],
-                              fit_bf16=fit_bf16_launches["min_dist_voxels"]),
+                              fit_bf16=fit_bf16_launches["min_dist_voxels"],
+                              evaluation=eval_launches["min_dist_voxels"]),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -2753,6 +3244,10 @@ def run_phases(device, small, counts, native_build, fit_root):
         train_shape={k: timing["train"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "slots_per_pair", "host_ms")},
+        evaluation_shapes={case: {k: row[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "slots_per_pair", "host_ms")}
+            for case, row in timing["evaluation"].items()},
     ), dict(
         name="knn", route="cuda",
         source="morefusion_tpu_torch/csrc/knn.cu",
@@ -2760,13 +3255,15 @@ def run_phases(device, small, counts, native_build, fit_root):
         launches=(train_launches["nn_indices"] + icp_launches
                   + serving_icp_launches + pipeline_icp_launches
                   + fit_launches["nn_indices"]
-                  + fit_bf16_launches["nn_indices"]),
+                  + fit_bf16_launches["nn_indices"]
+                  + eval_launches["nn_indices"]),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
                               scene_pipeline_icp=pipeline_icp_launches,
                               fit=fit_launches["nn_indices"],
-                              fit_bf16=fit_bf16_launches["nn_indices"]),
+                              fit_bf16=fit_bf16_launches["nn_indices"],
+                              evaluation=eval_launches["nn_indices"]),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

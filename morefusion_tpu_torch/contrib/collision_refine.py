@@ -9,7 +9,9 @@ loss ``penalty - reward`` with
 
 where ``grid_nontarget_empty'`` also holds the other objects' inside grids.
 Every loss evaluation builds the objects' pseudo-occupancy grids, and so
-runs the min-distance kernel once (``ops/min_dist.py``). The Adam loop and
+runs the min-distance kernel (``ops/min_dist.py``) once, or twice in the
+exact cross mode, whose second launch voxelizes all other objects' points
+into each object's frame (``N`` lanes of ``N * M`` points). The Adam loop and
 its plateau rule run on the device, as the JAX package's ``lax.scan`` does:
 ``IterativeCollisionCheck.refine_async`` queues it without a read to the
 host, and ``resolve`` reads the result back once.
@@ -30,6 +32,38 @@ from ..geometry import (
     quaternion_matrix_np,
     translation_from_matrix,
 )
+
+
+def _upsample_axis_np(a, scale, axis):
+    V = a.shape[axis]
+    pos = np.arange(V * scale, dtype=np.float64) / scale
+    i0 = np.floor(pos).astype(np.int64)
+    w = (pos - i0).astype(np.float32)
+    i1 = np.minimum(i0 + 1, V - 1)
+    a0 = np.take(a, i0, axis=axis)
+    a1 = np.take(a, i1, axis=axis)
+    shape = [1] * a.ndim
+    shape[axis] = -1
+    w = w.reshape(shape)
+    return a0 * (1.0 - w) + a1 * w
+
+
+def upsample_observed_grid(grid, scale: int):
+    """Trilinear upsample of an observed occupancy grid to a finer pitch,
+    on the host (float32).
+
+    Voxel ``k``'s centre sits at ``origin + k * pitch``, so the fine grid
+    keeps the same origin with ``pitch / scale`` and ``V * scale`` voxels a
+    side: even fine indices land on the coarse centres. Refinement can so
+    run on grids finer than the model's 32^3 (``evaluate
+    --icc-grid-scale``).
+    """
+    g = np.asarray(grid, np.float32)
+    if scale == 1:
+        return g
+    for ax in (-3, -2, -1):
+        g = _upsample_axis_np(g, scale, ax)
+    return g
 
 
 def _axis_weights(o_i, pitch_i, o_j, pitch_j, V):
@@ -73,16 +107,22 @@ def icc_loss(
     threshold: float = 2.0,
     sdf_offset: float = 0.0,
     cross_mode: str = "resample",
+    return_parts: bool = False,
 ):
-    """The ICC loss. ``cross_mode="resample"``: each object's inside grid is
-    voxelized once in its own frame and the other objects' occupancy in
-    frame i is their grids resampled into it (inside weights normalized per
-    object). ``"exact"`` is not ported yet."""
-    if cross_mode == "exact":
-        raise NotImplementedError("cross_mode='exact' is not ported yet")
-    if cross_mode != "resample":
-        raise ValueError(f"unknown cross_mode: {cross_mode}")
-    N = points.shape[0]
+    """The ICC loss. ``cross_mode``:
+
+    - ``"resample"``: each object's inside grid is voxelized once in its own
+      frame, and the other objects' occupancy in frame i is their grids
+      resampled into it (inside weights normalized per object);
+    - ``"exact"``: the reference's formulation. The points of all objects
+      but i are voxelized into frame i, one lane of ``N * M`` points per
+      object (a shared max-normalization of their inside weights). As in
+      the JAX package, this voxelization takes no ``sdf_offset``.
+
+    With ``return_parts`` returns ``(loss, (penalty_i, reward_i))``, the
+    per-object ``(N,)`` parts.
+    """
+    N, M, _ = points.shape
     dims = (voxel_dim,) * 3
     T = transformation_matrix(quaternions, translations)
     moved = transform_points(points, T)  # (N, M, 3)
@@ -91,11 +131,28 @@ def icc_loss(
         moved, sdf, pitch=pitch, origin=origin, dims=dims,
         threshold=threshold, sdf_offset=sdf_offset, point_mask=valid,
     )
-    pairs = _resample_grids(grid_i, pitch, origin, voxel_dim)
-    eye = torch.eye(N, dtype=torch.bool, device=points.device)
-    keep = ~eye & obj_mask[None, :]
-    pairs = torch.where(keep[:, :, None, None, None], pairs, 0.0)
-    grid_other = pairs.amax(dim=1)
+    device = points.device
+    if cross_mode == "resample":
+        pairs = _resample_grids(grid_i, pitch, origin, voxel_dim)
+        eye = torch.eye(N, dtype=torch.bool, device=device)
+        keep = ~eye & obj_mask[None, :]
+        pairs = torch.where(keep[:, :, None, None, None], pairs, 0.0)
+        grid_other = pairs.amax(dim=1)
+    elif cross_mode == "exact":
+        # every lane holds all N * M points; lane i masks its own object's.
+        # The payload's scale is the max of the lane's whole sdf, masked
+        # points included, as JAX's broadcast sdf gives it
+        flat_pts = moved.reshape(1, N * M, 3).expand(N, N * M, 3)
+        flat_sdf = sdf.reshape(1, N * M).expand(N, N * M)
+        owner = torch.arange(N, device=device).repeat_interleave(M)
+        others = valid.reshape(1, N * M) & (
+            owner[None, :] != torch.arange(N, device=device)[:, None])
+        _, _, grid_other = pseudo_occupancy_voxelization(
+            flat_pts, flat_sdf, pitch=pitch, origin=origin, dims=dims,
+            threshold=threshold, point_mask=others,
+        )
+    else:
+        raise ValueError(f"unknown cross_mode: {cross_mode}")
     gne = torch.maximum(grid_nontarget_empty, grid_other)
 
     om = obj_mask[:, None, None, None]
@@ -104,6 +161,13 @@ def icc_loss(
     g_t = torch.where(om, grid_target, 0.0)
     reward = torch.sum(grid_s * g_t) / torch.sum(g_t).clamp_min(1e-16)
     penalty = torch.sum(grid_i * gne) / torch.sum(grid_i).clamp_min(1e-16)
+    if return_parts:
+        ax = (1, 2, 3)
+        reward_i = (torch.sum(grid_s * g_t, ax)
+                    / torch.sum(g_t, ax).clamp_min(1e-16))
+        penalty_i = (torch.sum(grid_i * gne, ax)
+                     / torch.sum(grid_i, ax).clamp_min(1e-16))
+        return penalty - reward, (penalty_i, reward_i)
     return penalty - reward
 
 
@@ -133,6 +197,25 @@ def _adam_constants(iterations: int, device):
     c = torch.arange(1, iterations + 1, dtype=torch.float64, device=device)
     bias = 1.0 - decay ** c[:, None, None, None]
     return tuple(x.to(torch.float32) for x in (decay, 1.0 - decay, bias))
+
+
+def _neg_rates(iterations: int, N: int, alpha: float, alpha_decay: bool,
+               device):
+    """``(iterations, N, 7)`` float32: step k's negated rate of each
+    parameter, made on the device. Quaternion columns at ``alpha``,
+    translation columns at ``0.1 * alpha``; with ``alpha_decay`` each is
+    ``optax.cosine_decay_schedule(rate, iterations)`` at the count before
+    step k's update, taken in float64 and cast to float32."""
+    rate = torch.full((7,), alpha, dtype=torch.float64, device=device)
+    rate[4:] = alpha * 0.1
+    if alpha_decay:
+        count = torch.arange(iterations, dtype=torch.float64, device=device)
+        cosine = 0.5 * (1.0 + torch.cos(
+            math.pi * count.clamp_max(iterations) / iterations))
+        rate = rate * cosine[:, None]
+    else:
+        rate = rate.expand(iterations, 7)
+    return (-rate).to(torch.float32)[:, None, :].expand(iterations, N, 7)
 
 
 def _adam_step(state, g, decay, one_minus_decay, bias, neg_lr):
@@ -166,13 +249,15 @@ def refine_collision(
     alpha: float = 0.01,
     early_stop: bool = True,
     cross_mode: str = "resample",
+    alpha_decay: bool = False,
 ):
     """Jointly refine all object poses with Adam, every iteration on the
     device.
 
     Mirrors the JAX package's ``lax.scan``: always ``iterations`` steps, no
     read to the host in any of them. The translation group's rate is
-    ``0.1 * alpha``. With ``early_stop``, the plateau rule freezes the
+    ``0.1 * alpha``; ``alpha_decay`` decays both to 0 on a cosine over the
+    ``iterations`` (``optax.cosine_decay_schedule``). With ``early_stop``, the plateau rule freezes the
     parameters and the Adam state from the step it fires; later steps
     evaluate the loss at the frozen parameters. Returns ``(quaternions,
     translations, losses, n_iter)`` as tensors on the inputs' device: the
@@ -193,8 +278,7 @@ def refine_collision(
     grid_target = _dequantize(grid_target)
     grid_nontarget_empty = _dequantize(grid_nontarget_empty)
     decay, one_minus_decay, bias = _adam_constants(iterations, device)
-    neg_lr = torch.full((N, 7), -alpha, device=device)
-    neg_lr[:, 4:] = -(alpha * 0.1)
+    neg_lr = _neg_rates(iterations, N, alpha, alpha_decay, device)
 
     p = torch.cat([quaternions.detach(), translations.detach()], 1).to(
         torch.float32)
@@ -218,9 +302,9 @@ def refine_collision(
             losses[i] = loss.detach()
 
             # once stopped the step is discarded, so step i's bias
-            # correction serves whether or not the count has frozen
+            # correction and rate serve whether or not the count has frozen
             new = _adam_step(state, g, decay, one_minus_decay, bias[i],
-                             neg_lr)
+                             neg_lr[i])
             if stopped is None:
                 state = new
             else:
@@ -326,14 +410,14 @@ class IterativeCollisionCheck:
         self._pending = None
 
     def refine_async(self, iterations: int = 30, alpha: float = 0.01,
-                     early_stop: bool = True):
+                     early_stop: bool = True, alpha_decay: bool = False):
         """Enqueue the refinement on the device and return without reading
         anything back; :meth:`resolve` reads the result. The serving
         pipeline overlaps the refine of frame k with the host work of frame
         k+1 this way, as the reference's separate refinement node does."""
         self._pending = refine_collision(
             *self._qt, **self._arrays, **self._kw, iterations=iterations,
-            alpha=alpha, early_stop=early_stop,
+            alpha=alpha, early_stop=early_stop, alpha_decay=alpha_decay,
         )
 
     def resolve(self):
@@ -350,11 +434,35 @@ class IterativeCollisionCheck:
         return self.transforms, flat[nq + nt:-1], int(flat[-1])
 
     def refine(self, iterations: int = 30, alpha: float = 0.01,
-               early_stop: bool = True):
+               early_stop: bool = True, alpha_decay: bool = False):
         """Refine; returns ``(transforms (N, 4, 4), losses, n_iter)``."""
         self.refine_async(iterations=iterations, alpha=alpha,
-                          early_stop=early_stop)
+                          early_stop=early_stop, alpha_decay=alpha_decay)
         return self.resolve()
+
+    def loss_components(self, transforms=None):
+        """The objective at the given (default: the current) poses, without
+        refining: ``(loss, penalty_i, reward_i)``, the per-object parts of
+        the real objects. uint8 grids are dequantized as ``/ 255``."""
+        q, t = self._q, self._t
+        if transforms is not None:
+            q, t = q.copy(), t.copy()
+            for i, T in enumerate(transforms[: self._n]):
+                q[i] = quaternion_from_matrix(T)
+                t[i] = translation_from_matrix(T)
+        a = dict(self._arrays)
+        for name in ("grid_target", "grid_nontarget_empty"):
+            if a[name].dtype == torch.uint8:
+                a[name] = a[name].to(torch.float32) / 255.0
+        with torch.no_grad():
+            loss, (pen, rew) = icc_loss(
+                torch.from_numpy(q).to(self._device),
+                torch.from_numpy(t).to(self._device), **a,
+                **self._kw, return_parts=True)
+        out = torch.cat([loss[None], pen, rew]).cpu().numpy()
+        Np, n = pen.shape[0], self._n
+        return (float(out[0]), out[1:1 + n].astype(np.float32),
+                out[1 + Np:1 + Np + n].astype(np.float32))
 
     @staticmethod
     def warmup_buckets(

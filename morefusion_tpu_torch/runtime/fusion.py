@@ -120,6 +120,13 @@ class OccupancyFusion:
             )
         return label
 
+    def get_grids(self, instance_id: int, pitch: float, origin):
+        """(grid_target, grid_nontarget, grid_empty) for one instance."""
+        dims = (self._voxel_dim,) * 3
+        return self._mapping.get_target_grids(
+            instance_id, dimensions=dims, pitch=pitch, origin=origin
+        )
+
     def get_grids_batch(self, instance_ids, pitches, origins):
         """(N, V, V, V) target/nontarget/empty grids for several instances
         in one native call (one extraction per frame instead of ~2 per

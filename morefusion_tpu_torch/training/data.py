@@ -42,6 +42,7 @@ class BatchLoader:
         seed: int = 0,
         drop_last: bool = True,
         num_workers: int = 0,
+        indices: Optional[np.ndarray] = None,
     ):
         self._dataset = dataset
         self._batch_size = batch_size
@@ -50,7 +51,9 @@ class BatchLoader:
         self._rng = np.random.RandomState(seed)
         self._drop_last = drop_last
         self._num_workers = int(num_workers)
-        self._indices = np.arange(len(dataset))
+        self._indices = (
+            np.arange(len(dataset)) if indices is None else np.asarray(indices)
+        )
         #: a list to which the serial path appends each batch's ms
         self.batch_ms = None
 

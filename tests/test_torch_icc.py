@@ -56,14 +56,6 @@ def test_icc_loss_value_and_gradients(rng, obj_mask):
                                    atol=1e-3 * np.abs(want).max())
 
 
-def test_icc_loss_exact_mode_is_not_ported(rng):
-    q, t, arrays = _case(rng, N=2, M=8, V=4)
-    with pytest.raises(NotImplementedError):
-        TC.icc_loss(torch.from_numpy(q), torch.from_numpy(t),
-                    *map(torch.from_numpy, arrays), torch.ones(2, dtype=bool),
-                    voxel_dim=4, cross_mode="exact")
-
-
 @pytest.mark.parametrize("alpha,obj_mask", [(0.01, (1, 1, 0)),
                                             (0.001, (1, 1, 0)),
                                             (0.01, (1, 1, 1))])

@@ -62,7 +62,9 @@ def test_port_sources_exist():
                    "training/augment_device.py", "training/data.py",
                    "training/evaluator.py", "training/reporting.py",
                    "training/checkpoints.py", "training/loop.py",
-                   "cli/train.py"):
+                   "cli/train.py", "cli/_eval.py", "cli/evaluate.py",
+                   "cli/eval_sweep.py", "cli/ablation_report.py",
+                   "cli/icc_diagnose.py", "cli/check_icp_vs_icc.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 
