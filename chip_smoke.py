@@ -5,9 +5,9 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc`` and makes phase 11's data, then runs twelve
-phases, each printing one JSON line (with ``elapsed_s``, the seconds since
-the start):
+and ``knn.cu``) with ``nvcc`` and makes phase 11's and phase 13's data,
+then runs thirteen phases, each printing one JSON line (phase 13 four, then
+its total) with ``elapsed_s``, the seconds since the start:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -140,7 +140,30 @@ the start):
    few crops with the same pixel draw (ADDs within ``POSE_ATOL``) and the
    exact-mode problem replayed for ``ICC_REPLAY_ITERATIONS`` (within phase
    9's replay bounds or twice the CPU's own spread under a start jitter,
-   see ``exact_replay``).
+   see ``exact_replay``);
+13. the rest of training, on phase 11's packed sets and frames made with
+   them: (a) ``cli.generate_data`` of one seed with and without
+   ``--textured`` (8 val frames each, forked workers): the same scene, only
+   ``rgb`` differs; the textured set packed and the committed r5tex
+   checkpoint (trained on textured data) and the occ one evaluated on it
+   (``cli.evaluate``, raw and +icp; no gate on the AUCs); (b) PoseNet at
+   full width: one step with the kernels against the plain versions in
+   deterministic mode and one on the card against the CPU at B = 2 (phase
+   6's batch and tolerances), then ``cli.train --model posenet`` (fp32,
+   B = 16, ``add/add_s``: an epoch, one evaluation, two steps with ADD-S)
+   with its step ms and knn launches; (c) ``cli.train_segmentation`` at
+   ``bench.py --segmenter``'s widths with the boundary head (B = 8,
+   240x320, ``--fg-weight 5``, 64 generator frames cached by forked
+   workers in ``MFTPU_SEG_CACHE``) for as many steps as fit
+   ``seg_seconds`` at the measured step rate, its loss card against CPU,
+   the held-out mIoU and detection rate beside the seeded start's on the
+   same 16 val frames (training must raise the mIoU), then phase 10's
+   components measurements on the trained segmenter's own maps and a
+   ``ScenePipeline(segmenter=...)`` stream with its ``segment`` share and
+   min_dist launches; (d)
+   ``cli.pretrain_backbone`` on phase 11's two sets (width 64, bf16, 60
+   steps) with its rotation accuracy, then one ``cli.train
+   --pretrained-backbone`` step whose backbone is the export in bf16.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -2344,25 +2367,17 @@ def phase_segmenter(device, small, counts, models, frames, pose_model):
         x_dev = x.to(device)
         forward_ms = (cuda_ms(lambda: unet(x_dev), reps)
                       if device.type == "cuda" else None)
-        forward_host_ms, (lg, bl) = host_timed(lambda: unet(x_dev), reps,
-                                               device)
-        class_map = lg[0].argmax(0).to(torch.int32)
-        boundary = bl[0] > 0.0
-        cc_ms, (unet_comp, unet_stats) = host_timed(
-            lambda: connected_components(class_map, boundary,
-                                         return_stats=True), reps, device)
+        forward_host_ms, _ = host_timed(lambda: unet(x_dev), reps, device)
         gen_cc_ms, _ = host_timed(
             lambda: connected_components(*(a.to(device) for a in args)),
             reps, device)
     # the components on the UNet's own map, card against CPU on the same
     # input: on the card both propagations stop at the 256-step cap
     # (connected_components' max_iters), so the keys hold the cut there
-    want_unet_comp, want_unet_stats = connected_components(
-        class_map.cpu(), boundary.cpu(), return_stats=True)
-    unet_diff = int((unet_comp.cpu() != want_unet_comp).sum())
-    check(unet_diff == 0 and unet_stats == want_unet_stats,
-          f"segmenter: UNet map, {unet_diff} component keys differ, "
-          f"propagation {unet_stats} (card) vs {want_unet_stats} (cpu)")
+    unet_map, (class_map, boundary, unet_comp) = components_on_map(
+        unet, rgb, device, reps, "segmenter: UNet map")
+    cc_ms, unet_diff = unet_map["ms"], unet_map["keys_differing"]
+    unet_stats = unet_map["propagation"]
     if not small:
         check(unet_stats["iterations"] == [256, 256],
               f"segmenter: the UNet map's propagation {unet_stats} does not "
@@ -2758,22 +2773,23 @@ EVAL_SMALL = dict(n_examples=4, scale3_examples=None, iterations=2,
                   cpu_examples=2, n_boot=20, icc_points=128)
 
 
-def eval_runs(root, small):
+def eval_runs(root, small, names=EVAL_RUNS):
     """Run directories of ``args.json`` and the best archive: the committed
-    occ and noocc checkpoints (seeded tiny models in the rehearsal)."""
+    checkpoints ``names`` (seeded tiny models in the rehearsal)."""
     from morefusion_tpu_torch import models
     from morefusion_tpu_torch.training import export_params_npz
 
     best = "snapshot_model_best_validation_main_auc.npz"
-    for name in EVAL_RUNS:
+    for name in names:
         run = os.path.join(root, name)
         os.makedirs(run)
         if small:
+            occupancy = name != "noocc"
             torch.manual_seed(len(name))
             export_params_npz(models.tiny_singleview3d(
-                21, n_point=64, with_occupancy=name == "occ"),
+                21, n_point=64, with_occupancy=occupancy),
                 os.path.join(run, best))
-            args = dict(tiny=True, n_point=64, with_occupancy=name == "occ",
+            args = dict(tiny=True, n_point=64, with_occupancy=occupancy,
                         loss="add/add_s")
         else:
             src = os.path.join(ROOT, "docs", "results", name)
@@ -3135,6 +3151,550 @@ def run_evaluation(device, small, counts, fit_root):
     return launches
 
 
+# -------------------------------------------------------------- phase 13
+
+# the rest of training (phase 13): textured data and the r5tex checkpoint,
+# PoseNet through the train CLI, the segmenter's training and backbone
+# pretraining. The textured and untextured sets are val frames of one seed;
+# the segmenter's frames are train_segmentation.py's (4-10 objects, its
+# default seeds) at 240x320; pretraining reads phase 11's packed sets
+REST_TEX_SEED = 13
+SEG_OBJECTS = (4, 10)
+SEG_SEED = 0
+REST_FULL = dict(tex_frames=8, seg_frames=64, seg_val_frames=16,
+                 seg_shape=(240, 320), seg_batch=8, seg_widths=SEG_WIDTHS,
+                 seg_seconds=50.0, seg_steps=None, pretrain_steps=60,
+                 pretrain_width=64, pretrain_batch=32, pretrain_n_val=32)
+REST_SMALL = dict(tex_frames=2, seg_frames=4, seg_val_frames=2,
+                  seg_shape=(120, 160), seg_batch=2, seg_widths=(8, 16),
+                  seg_seconds=None, seg_steps=3, pretrain_steps=4,
+                  pretrain_width=8, pretrain_batch=8, pretrain_n_val=8)
+# the segmenter's steps: as many as fit seg_seconds at the measured rate
+SEG_MIN_STEPS, SEG_MAX_STEPS = 20, 3000
+# train_segmentation.py's foreground weight (its recall lever): at the
+# plain mean (1.0) a run of a few hundred steps predicts background alone
+SEG_FG_WEIGHT = 5.0
+# the segmenter's loss, card against CPU at B = 2
+SEG_CPU_LOSS_RTOL = 1e-5
+# the trained segmenter's maps measured in phase 13 (val frames)
+SEG_MAP_FRAMES = 3
+
+_SEG_SETS = {}
+
+
+def _seg_frame(task):
+    """One segmentation frame into ``MFTPU_SEG_CACHE`` (a forked worker)."""
+    split, index = task
+    _SEG_SETS[split].get_example(index)
+    return index
+
+
+def rest_root(fit_root):
+    return os.path.join(fit_root, "rest")
+
+
+def rest_data(fit_root, small):
+    """Phase 13's host data, made in forked workers before anything runs on
+    the card (as phase 11's): ``cli.generate_data`` of one seed with and
+    without ``--textured``, and the segmenter's train and val frames in
+    ``MFTPU_SEG_CACHE`` (``SyntheticInstanceSegmentationDataset``'s disk
+    cache, which ``cli.train_segmentation`` then reads)."""
+    import multiprocessing
+
+    from morefusion_tpu_torch.cli import generate_data
+    from morefusion_tpu_torch.datasets.instance_segmentation import (
+        SyntheticInstanceSegmentationDataset,
+    )
+
+    cfg = REST_SMALL if small else REST_FULL
+    fit = FIT_SMALL if small else FIT_FULL
+    root = rest_root(fit_root)
+    n_workers = min(os.cpu_count() or 1, 4 if small else 8)
+    t0 = time.perf_counter()
+    flags = ["--split", "val", "--n-frames", str(cfg["tex_frames"]),
+             "--n-objects", *map(str, FIT_OBJECTS), "--image-shape",
+             *map(str, fit["shape"]), "--seed", str(REST_TEX_SEED),
+             "--n-workers", str(n_workers)]
+    for name, extra in (("textured", ["--textured"]), ("untextured", [])):
+        quiet(generate_data.main,
+              ["--out", os.path.join(root, name)] + flags + extra)
+    tex_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {
+            "MFTPU_SEG_CACHE": os.path.join(root, "segcache")}):
+        for split, n, seed in (("train", cfg["seg_frames"], SEG_SEED),
+                               ("val", cfg["seg_val_frames"], SEG_SEED + 1)):
+            _SEG_SETS[split] = SyntheticInstanceSegmentationDataset(
+                split=split, n_frames=n, image_shape=cfg["seg_shape"],
+                n_objects=SEG_OBJECTS, seed=seed,
+                background_composite=False, cache=False)
+        tasks = [(s, i) for s, ds in _SEG_SETS.items()
+                 for i in range(len(ds))]
+        with multiprocessing.get_context("fork").Pool(n_workers) as pool:
+            pool.map(_seg_frame, tasks, chunksize=1)
+    _SEG_SETS.clear()
+    return dict(tex_frames=cfg["tex_frames"], tex_s=tex_s,
+                seg_frames=cfg["seg_frames"],
+                seg_val_frames=cfg["seg_val_frames"],
+                seg_s=time.perf_counter() - t0, n_workers=n_workers)
+
+
+def same_array(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"))
+
+
+def phase_textured(device, small, counts, fit_root, data):
+    """(a) The textured set against the untextured one of the same seed
+    (only ``rgb`` differs), then the committed r5tex checkpoint, trained on
+    textured data, and the occ checkpoint evaluated on the textured crops
+    (``cli.evaluate --methods morefusion morefusion+icp``; seeded tiny
+    models in the rehearsal). No gate on the AUCs."""
+    from morefusion_tpu_torch import datasets
+
+    root = rest_root(fit_root)
+    tex, flat = (os.path.join(root, n) for n in ("textured", "untextured"))
+    check(read_json(os.path.join(tex, "meta.json"))
+          == read_json(os.path.join(flat, "meta.json")),
+          "textured: meta.json differs from the untextured set's")
+    files = sorted(os.path.relpath(os.path.join(d, f), tex)
+                   for d, _, fs in os.walk(tex) for f in fs
+                   if f.endswith(".npz"))
+    check(len(files) > 0, "textured: no examples")
+    rgb_differs = 0
+    for rel in files:
+        with np.load(os.path.join(tex, rel)) as a, \
+                np.load(os.path.join(flat, rel)) as b:
+            check(sorted(a.files) == sorted(b.files), f"textured: {rel} keys")
+            for k in a.files:
+                if k == "rgb":
+                    rgb_differs += not same_array(a[k], b[k])
+                else:
+                    check(same_array(a[k], b[k]),
+                          f"textured: {rel}:{k} differs without texture")
+    check(rgb_differs > 0, "textured: the texture changed no crop's rgb")
+
+    packed = tex + "_packed"
+    datasets.pack_reindexed(tex, packed, progress=False)
+    n_crops = len(datasets.PackedPoseDataset(packed, split="val"))
+    runs = eval_runs(os.path.join(root, "runs"), small, ("r5tex", "occ"))
+    n_ex = ["--n-examples", "4"] if small else []
+    rows = {name: evaluate_run(device, counts, [
+        "--log-dir", os.path.join(runs, name), "--data", packed,
+        "--methods", "morefusion", "morefusion+icp"] + n_ex)
+        for name in ("r5tex", "occ")}
+    launches = {k: sum(r["launches"][k] for r in rows.values())
+                for k in rows["occ"]["launches"]}
+    if device.type == "cuda":
+        check(launches["nn_indices"] > 0, "textured: no knn launch")
+    emit(dict(phase="rest_textured", ok=True, device=str(device), data=data,
+              examples=len(files), rgb_differs=rgb_differs,
+              textured_crops=n_crops,
+              checkpoints="committed r5tex / occ" if not small
+              else "seeded tiny models",
+              auc={name: r["auc"] for name, r in rows.items()},
+              refine_frames_per_s={name: r["refine_frames_per_s"]
+                                   for name, r in rows.items()},
+              wall_s={name: r["wall_s"] for name, r in rows.items()},
+              launches=launches))
+    return launches
+
+
+def phase_posenet(device, small, counts, fit_root, setup):
+    """(b) PoseNet at full width: one step with the kernels against the
+    plain versions in deterministic mode and one on the card against the
+    CPU at B = 2 (phase 6's batch and tolerances), then ``cli.train
+    --model posenet`` on phase 11's packed sets (fp32, ``add/add_s``: the
+    ``add -> add/add_s`` switch after an epoch, then two steps with ADD-S,
+    one evaluation), its step ms and knn launches."""
+    from morefusion_tpu_torch import datasets
+    from morefusion_tpu_torch import models
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.training import trainer
+
+    models_bank, bank, _, batch = setup
+    S = batch["rgb"].shape[1]
+    torch.manual_seed(31)
+    model = models.PoseNet(n_fg_class=21).to(device)
+    loss_fn = trainer.make_loss_fn(model, bank)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            kernel = loss_and_grads(model, loss_fn, batch, train=True)
+            with mock.patch.object(md, "min_dist_voxels",
+                                   md.min_dist_voxels_plain), \
+                    mock.patch.object(knn, "nn_indices",
+                                      knn.nn_indices_plain):
+                plain = loss_and_grads(model, loss_fn, batch, train=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    vs_plain = compare_steps(kernel, plain, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                             STEP_GRAD_TOTAL, "posenet kernel vs plain")
+    vs_plain["loss_identical"] = kernel[0] == plain[0]
+    del kernel, plain
+
+    b2 = make_train_batch(2, S, seed=1)
+    mask = ~np.isnan(b2["pcd"]).any(-1).reshape(2, -1)
+    g = np.random.RandomState(6)
+    b2["sample_indices"] = np.stack([
+        g.choice(np.flatnonzero(m), model.n_point, replace=False)
+        for m in mask]).astype(np.int64)
+    on_card = loss_and_grads(model, loss_fn, b2, train=False)
+    cpu_model = models.PoseNet(n_fg_class=21)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    cpu_bank = trainer.CadPointBank.build(models_bank, 21, device="cpu")
+    on_cpu = loss_and_grads(cpu_model,
+                            trainer.make_loss_fn(cpu_model, cpu_bank),
+                            b2, train=False)
+    vs_cpu = compare_steps(on_card, on_cpu, CPU_LOSS_RTOL, CPU_GRAD_RTOL,
+                           CPU_GRAD_TOTAL, "posenet card vs cpu")
+    del model, on_card, on_cpu, cpu_model, cpu_bank
+
+    # the main path: the train CLI
+    cfg = FIT_SMALL if small else FIT_FULL
+    train, val = (os.path.join(fit_root, s) for s in ("train", "val"))
+    spe = len(datasets.PackedPoseDataset(
+        train, min_visibility=FIT_MIN_VISIBILITY)) // cfg["batch"]
+    n_steps, eval_at = (spe + 2, spe) if not small else (2, 2)
+    run = os.path.join(rest_root(fit_root), "posenet")
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    (state, summary), _ = quiet(run_cli, [
+        "--out", run, "--model", "posenet", "--data", train, "--val-data",
+        val, "--loss", "add/add_s", "--batch-size", str(cfg["batch"]),
+        "--val-batch-size", str(cfg["val_batch"]), "--max-steps",
+        str(n_steps), "--eval-interval", str((eval_at + 0.5) / spe),
+        "--log-interval", "1", "--min-visibility", str(FIT_MIN_VISIBILITY),
+        "--device", device.type])
+    wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    check(isinstance(state.model, models.PoseNet) and state.step == n_steps,
+          f"posenet: {type(state.model).__name__} at step {state.step}")
+    log = read_json(os.path.join(run, "log.json"))
+    evals = [r["iteration"] for r in log if "main/add_or_add_s/auc" in r]
+    check(evals == [eval_at], f"posenet: evaluations at {evals}")
+    auc = summary.get("main/add_or_add_s/auc")
+    check(auc is not None and np.isfinite(auc), f"posenet: {summary}")
+    rows = [r for r in log if "main/sps" in r]
+    check(all(np.isfinite(r["main/loss"]) for r in rows),
+          f"posenet: losses {[r['main/loss'] for r in rows]}")
+    step_ms = {
+        phase: [1e3 / r["main/sps_window"] for r in rows
+                if r["iteration"] > 1 and (r["iteration"] > spe) == sym]
+        for phase, sym in (("add", False), ("add_s", True))}
+    timing = read_json(os.path.join(run, "timing.json"))
+    if device.type == "cuda":
+        check(launches["nn_indices"] > 0,
+              "posenet: the knn kernel was never launched")
+    emit(dict(phase="rest_posenet", ok=True, device=str(device),
+              model="PoseNet, full width, fp32", batch=cfg["batch"],
+              n_point=state.model.n_point, kernel_vs_plain=vs_plain,
+              card_vs_cpu=vs_cpu,
+              tolerance=dict(kernel_vs_plain=dict(
+                  loss_rtol=STEP_LOSS_RTOL, grad_rtol=STEP_GRAD_RTOL,
+                  grad_of_whole=STEP_GRAD_TOTAL),
+                  card_vs_cpu=dict(loss_rtol=CPU_LOSS_RTOL,
+                                   grad_rtol=CPU_GRAD_RTOL,
+                                   grad_of_whole=CPU_GRAD_TOTAL)),
+              fit=dict(steps=state.step, steps_per_epoch=spe,
+                       evaluation_at=eval_at, wall_s=wall_s,
+                       step_ms=step_ms,
+                       median_step_ms={k: median(v)
+                                       for k, v in step_ms.items()},
+                       eval_ms_per_batch=median(timing["eval_ms_per_batch"]),
+                       save_best_ms=median(timing["save_best_ms"]),
+                       losses=[r["main/loss"] for r in rows], auc=auc),
+              launches=launches))
+    return launches
+
+
+def components_on_map(unet, rgb, device, reps, what):
+    """The UNet's class map and boundary on ``rgb``, the components on the
+    card against the CPU (keys and propagation identical), and their host
+    ms on the card: ``(info, (class_map, boundary, comp))``."""
+    from morefusion_tpu_torch.ops import connected_components
+
+    with torch.inference_mode():
+        logits, blog = unet(torch.from_numpy(rgb[None]).to(device))
+        class_map = logits[0].argmax(0).to(torch.int32)
+        boundary = blog[0] > 0.0
+        ms, (comp, stats) = host_timed(
+            lambda: connected_components(class_map, boundary,
+                                         return_stats=True), reps, device)
+    want, want_stats = connected_components(class_map.cpu(), boundary.cpu(),
+                                            return_stats=True)
+    diff = int((comp.cpu() != want).sum())
+    check(diff == 0 and stats == want_stats,
+          f"{what}: {diff} component keys differ, propagation "
+          f"{stats} (card) vs {want_stats} (cpu)")
+    return dict(ms=ms, propagation=stats, keys_differing=diff,
+                components=len(np.unique(want.numpy())) - 1,
+                foreground_share=float((class_map > 0).double().mean())), \
+        (class_map, boundary, comp)
+
+
+def phase_seg_train(device, small, counts, fit_root, data, models_bank,
+                    frames, pose_model):
+    """(c) ``cli.train_segmentation`` at ``bench.py --segmenter``'s widths
+    with the boundary head on the frames ``rest_data`` cached, for as many
+    steps as fit ``seg_seconds`` at the rate measured first (the bare step
+    on a batch on the card, and the host's time to make a batch); the
+    segmenter's loss card against CPU at B = 2; the held-out mIoU and
+    detection rate of the trained segmenter beside the seeded start's on
+    the same val frames (training must raise the mIoU); then phase 10's
+    measurements on the trained segmenter's own maps (components card
+    against CPU, ms, propagation steps and host reads) and a short
+    ``ScenePipeline(segmenter=...)`` stream (the bf16 pose model)."""
+    from morefusion_tpu_torch import training
+    from morefusion_tpu_torch.cli import train_segmentation as seg_cli
+    from morefusion_tpu_torch.datasets.instance_segmentation import (
+        SyntheticInstanceSegmentationDataset,
+    )
+    from morefusion_tpu_torch.datasets.rgbd_pose_estimation.augmentation \
+        import augment_rgb
+    from morefusion_tpu_torch.models.segmentation import (
+        SegmentationNode,
+        UNetSegmentation,
+    )
+    from morefusion_tpu_torch.ops import connected_components
+    from morefusion_tpu_torch.runtime import ScenePipeline
+
+    cfg = REST_SMALL if small else REST_FULL
+    root = rest_root(fit_root)
+    B = cfg["seg_batch"]
+    base = ["--out", os.path.join(root, "segmenter"), "--n-frames",
+            str(cfg["seg_frames"]), "--n-val-frames",
+            str(cfg["seg_val_frames"]), "--image-shape",
+            *map(str, cfg["seg_shape"]), "--n-objects",
+            *map(str, SEG_OBJECTS), "--batch-size", str(B), "--widths",
+            *map(str, cfg["seg_widths"]), "--seed", str(SEG_SEED),
+            "--fg-weight", str(SEG_FG_WEIGHT), "--device", device.type]
+    args = seg_cli.parse_args(base)
+
+    def unet():
+        torch.manual_seed(SEG_SEED)  # the CLI's start
+        return UNetSegmentation(n_class=SEG_N_CLASS,
+                                widths=cfg["seg_widths"], with_boundary=True)
+
+    with mock.patch.dict(os.environ, {
+            "MFTPU_SEG_CACHE": os.path.join(root, "segcache")}):
+        # (a) the rate: the host's batch (its second making: the frames
+        # then come from the dataset's memory, as after the first epoch),
+        # then the bare step on the card
+        ds = SyntheticInstanceSegmentationDataset(
+            split="train", n_frames=cfg["seg_frames"],
+            image_shape=cfg["seg_shape"], n_objects=SEG_OBJECTS,
+            format="instance", seed=SEG_SEED)
+        aug = np.random.RandomState(0)
+        host_batch_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            exs = [dict(ex, rgb=augment_rgb(ex["rgb"].astype(np.uint8), aug)
+                        .astype(np.float32))
+                   for ex in (ds.get_example(i) for i in range(B))]
+            batch = training.stack_examples(exs)
+            host_batch_ms.append((time.perf_counter() - t0) * 1e3)
+        small_batch = seg_cli.quantize_batch(batch, use_depth=False)
+        state = training.create_train_state(unet().to(device), args.lr)
+        step = seg_cli.make_train_step(state, fg_weight=SEG_FG_WEIGHT)
+        float(step(small_batch))
+        bare_ms = []
+        for _ in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            float(step(small_batch))
+            bare_ms.append((time.perf_counter() - t0) * 1e3)
+        del state, step
+
+        # (b) the loss on the card against the CPU at B = 2
+        two = {k: v[:2] for k, v in small_batch.items()}
+        losses, grads = [], []
+        for dev in (device, torch.device("cpu")):
+            m = unet().to(dev)
+            loss, _ = seg_cli.make_loss_fn(m, SEG_FG_WEIGHT)(two)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append(torch.cat([p.grad.reshape(-1).cpu()
+                                    for p in m.parameters()]))
+        loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        grad_err = float((grads[0] - grads[1]).norm() / grads[1].norm())
+        check(loss_err <= SEG_CPU_LOSS_RTOL,
+              f"segmenter training: loss card {losses[0]} vs cpu "
+              f"{losses[1]}")
+
+        # (c) the main path: the CLI
+        n_steps = cfg["seg_steps"] or int(np.clip(
+            cfg["seg_seconds"] * 1e3 / max(median(bare_ms),
+                                           host_batch_ms[-1]),
+            SEG_MIN_STEPS, SEG_MAX_STEPS))
+        t0 = time.perf_counter()
+        (state, summary), lines = quiet(seg_cli.main,
+                                        base + ["--steps", str(n_steps)])
+        cli_s = time.perf_counter() - t0
+        check(state.step == n_steps, f"segmenter: {state.step} steps")
+        log = read_json(os.path.join(args.out, "log.json"))
+        train_losses = [r["main/loss"] for r in log if "main/loss" in r]
+        check(np.isfinite(train_losses).all(),
+              f"segmenter: losses {train_losses}")
+        # (d) the seeded start on the same val frames
+        t0 = time.perf_counter()
+        seeded, _ = seg_cli.evaluate(unet(), args)
+        seeded_eval_s = time.perf_counter() - t0
+        val = SyntheticInstanceSegmentationDataset(
+            split="val", n_frames=cfg["seg_val_frames"],
+            image_shape=cfg["seg_shape"], n_objects=SEG_OBJECTS,
+            format="instance", seed=SEG_SEED + 1)
+        val_rgb = [val.get_example(i)["rgb"]
+                   for i in range(min(SEG_MAP_FRAMES, len(val)))]
+    if not small:
+        check(summary["validation/miou"] > seeded["validation/miou"],
+              f"segmenter: trained mIoU {summary['validation/miou']} not "
+              f"above the seeded start's {seeded['validation/miou']}")
+
+    # (e) the trained segmenter's own maps: the val frames and phase 9's
+    trained = state.model.eval()
+    reps = 10 if not small else 2
+    maps = {}
+    what = "trained segmenter"
+    for i, rgb in enumerate(val_rgb):
+        maps[f"val_{i}"], _ = components_on_map(trained, rgb, device, reps,
+                                                what)
+    maps["pipeline_frame"], (class_map, boundary, _) = components_on_map(
+        trained, frames[0]["rgb"], device, reps, what)
+    cc_profile = None
+    if device.type == "cuda":
+        steps = sum(maps["pipeline_frame"]["propagation"]["iterations"])
+        cc_profile = profile_calls(
+            lambda: connected_components(class_map, boundary), device, 5)
+        cc_profile["kernels_per_step"] = cc_profile["kernels_per_call"] / steps
+    node = SegmentationNode(trained, device=device)
+    node(frames[0]["rgb"])
+    node_ms, (_, classes) = host_timed(lambda: node(frames[0]["rgb"]), reps,
+                                       device)
+
+    # (f) the scene pipeline on the trained segmenter's instances
+    V = 32 if not small else 16
+    seg_frames = [{k: f[k] for k in ("rgb", "depth", "K", "T_cam2world")}
+                  for f in frames]
+
+    def make(n_votes):
+        return ScenePipeline(pose_model, models_bank, segmenter=node,
+                             voxel_dim=V, n_votes=n_votes,
+                             native_mapping=True, size_filter=False,
+                             async_refine=True, device=device)
+
+    pipe, n_votes = warm_pipeline(make, seg_frames, 1)
+    run = timed_stream(pipe, seg_frames, counts, device,
+                       6 if not small else 2, segment=True)
+    frame_ms = 1e3 / run["scene_pipeline_fps"]
+    emit(dict(phase="rest_segmenter", ok=True, device=str(device),
+              data=data, frame=list(cfg["seg_shape"]),
+              widths=list(cfg["seg_widths"]), batch=B, steps=n_steps,
+              fg_weight=SEG_FG_WEIGHT,
+              rate=dict(bare_step_ms=bare_ms,
+                        median_bare_step_ms=median(bare_ms),
+                        host_batch_ms=host_batch_ms,
+                        cli_s=cli_s, cli_step_ms=cli_s * 1e3 / n_steps),
+              card_vs_cpu=dict(loss=losses, loss_rel_err=loss_err,
+                               grad_rel_err=grad_err,
+                               loss_rtol=SEG_CPU_LOSS_RTOL),
+              losses=train_losses,
+              held_out=dict(val_frames=cfg["seg_val_frames"],
+                            trained=summary, seeded=seeded,
+                            seeded_eval_s=seeded_eval_s),
+              trained_maps=maps, components_profile=cc_profile,
+              node_call_ms=node_ms, instances=len(classes),
+              pipeline=dict(n_votes=n_votes, pose_model="bf16",
+                            segment_share=(run["split_ms_per_frame"]
+                                           ["segment"] / frame_ms),
+                            **run)))
+    check_timed_pass(run, "pipeline with the trained segmenter", device)
+    return run["launches"]["min_dist_voxels"]
+
+
+def phase_pretrain(device, small, fit_root):
+    """(d) ``cli.pretrain_backbone`` on phase 11's train and val packed sets
+    together, then a one-step ``cli.train --pretrained-backbone`` run whose
+    grafted backbone is the export rounded to bf16."""
+    from morefusion_tpu_torch.cli import pretrain_backbone
+    from morefusion_tpu_torch.training import loop
+    from morefusion_tpu_torch.training.checkpoints import import_backbone_npz
+
+    cfg = REST_SMALL if small else REST_FULL
+    fit = FIT_SMALL if small else FIT_FULL
+    train, val = (os.path.join(fit_root, s) for s in ("train", "val"))
+    out = os.path.join(rest_root(fit_root), "pretrain")
+    steps = cfg["pretrain_steps"]
+    t0 = time.perf_counter()
+    (model, row), _ = quiet(pretrain_backbone.main, [
+        "--out", out, "--data", train, val, "--steps", str(steps),
+        "--batch-size", str(cfg["pretrain_batch"]), "--n-val",
+        str(cfg["pretrain_n_val"]), "--width", str(cfg["pretrain_width"]),
+        "--eval-interval", str(max(steps // 2, 1)), "--device",
+        device.type])
+    pretrain_s = time.perf_counter() - t0
+    with open(os.path.join(out, "log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(len(rows) == 2 and rows[-1]["step"] == steps
+          and 0.0 <= row["val_acc"] <= 1.0, f"pretrain: log {rows}")
+    npz = os.path.join(out, "backbone_bf16.npz")
+
+    # a one-step run of the graft; its backbone is read right after the
+    # graft, before the step
+    grafted = {}
+
+    def graft(model, path):
+        out = import_backbone_npz(model, path)
+        grafted.update({k: v.detach().cpu().clone() for k, v in
+                        model.resnet_extractor.state_dict().items()})
+        return out
+
+    argv = ["--out", os.path.join(rest_root(fit_root), "grafted"),
+            "--data", train, "--val-data", val, "--pretrained-backbone", npz,
+            "--batch-size", str(fit["batch"]), "--max-steps", "1",
+            "--eval-interval", "1000", "--min-visibility",
+            str(FIT_MIN_VISIBILITY), "--device", device.type]
+    if small:
+        argv += ["--tiny", "--n-point", "64"]
+    with mock.patch.object(loop, "import_backbone_npz", graft):
+        (state, _), _ = quiet(run_cli, argv)
+    want = model.resnet_extractor.state_dict()
+    check(sorted(grafted) == sorted(want) and state.step == 1,
+          "pretrain: the grafted run's backbone keys or step")
+    for k, v in want.items():
+        check(torch.equal(grafted[k], v.detach().cpu().to(torch.bfloat16)
+                          .to(torch.float32)),
+              f"pretrain: grafted {k} is not the export rounded to bf16")
+    emit(dict(phase="rest_pretrain", ok=True, device=str(device),
+              crops=dict(sets=["train", "val"], n_val=cfg["pretrain_n_val"]),
+              width=cfg["pretrain_width"], batch=cfg["pretrain_batch"],
+              steps=steps, pretrain_s=pretrain_s,
+              ms_per_step=pretrain_s * 1e3 / steps, log=rows,
+              val_acc=row["val_acc"], grafted=dict(
+                  model="SingleView3D" + (" (tiny)" if small else ""),
+                  leaves=len(want), steps=1,
+                  equal_to_export_in_bf16=True)))
+
+
+def phase_rest(device, small, counts, fit_root, data, setup, models_bank,
+               frames, pose_model):
+    """Phase 13: the rest of training, (a) to (d)."""
+    t0 = time.perf_counter()
+    textured = phase_textured(device, small, counts, fit_root, data)
+    posenet = phase_posenet(device, small, counts, fit_root, setup)
+    segmenter = phase_seg_train(device, small, counts, fit_root, data,
+                                models_bank, frames, pose_model)
+    phase_pretrain(device, small, fit_root)
+    emit(dict(phase="rest_of_training", ok=True,
+              seconds=time.perf_counter() - t0))
+    return textured, posenet, segmenter
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3187,6 +3747,7 @@ def main(argv=None):
 
 def run_phases(device, small, counts, native_build, fit_root):
     fit_data_info = fit_data(fit_root, small)
+    rest_data_info = rest_data(fit_root, small)
     setup = train_setup(device, small)
     train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
     icp_scene = make_icp_scene(9, small)
@@ -3218,6 +3779,9 @@ def run_phases(device, small, counts, native_build, fit_root):
     fit_launches, fit_bf16_launches = phase_fit(
         device, small, counts, fit_data_info, fit_root, bare_step_ms)
     eval_launches = phase_evaluation(device, small, counts, fit_root)
+    textured_launches, posenet_launches, trained_seg_launches = phase_rest(
+        device, small, counts, fit_root, rest_data_info, setup,
+        scene_models, frames, model16)
 
     kernels = [dict(
         name="min_dist", route="cuda",
@@ -3227,7 +3791,10 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + pipeline_launches + pipeline_bf16_launches
                   + segmenter_launches + fit_launches["min_dist_voxels"]
                   + fit_bf16_launches["min_dist_voxels"]
-                  + eval_launches["min_dist_voxels"]),
+                  + eval_launches["min_dist_voxels"]
+                  + textured_launches["min_dist_voxels"]
+                  + posenet_launches["min_dist_voxels"]
+                  + trained_seg_launches),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -3235,7 +3802,12 @@ def run_phases(device, small, counts, native_build, fit_root):
                               scene_pipeline_segmenter=segmenter_launches,
                               fit=fit_launches["min_dist_voxels"],
                               fit_bf16=fit_bf16_launches["min_dist_voxels"],
-                              evaluation=eval_launches["min_dist_voxels"]),
+                              evaluation=eval_launches["min_dist_voxels"],
+                              evaluation_textured=textured_launches[
+                                  "min_dist_voxels"],
+                              posenet_fit=posenet_launches["min_dist_voxels"],
+                              scene_pipeline_trained_segmenter=(
+                                  trained_seg_launches)),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -3256,14 +3828,19 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + serving_icp_launches + pipeline_icp_launches
                   + fit_launches["nn_indices"]
                   + fit_bf16_launches["nn_indices"]
-                  + eval_launches["nn_indices"]),
+                  + eval_launches["nn_indices"]
+                  + textured_launches["nn_indices"]
+                  + posenet_launches["nn_indices"]),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
                               scene_pipeline_icp=pipeline_icp_launches,
                               fit=fit_launches["nn_indices"],
                               fit_bf16=fit_bf16_launches["nn_indices"],
-                              evaluation=eval_launches["nn_indices"]),
+                              evaluation=eval_launches["nn_indices"],
+                              evaluation_textured=textured_launches[
+                                  "nn_indices"],
+                              posenet_fit=posenet_launches["nn_indices"]),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

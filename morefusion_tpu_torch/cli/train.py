@@ -10,7 +10,9 @@ reindexed directories (several are concatenated); a packed set does the
 photometric and point-cloud augmentation on the device, a reindexed one on
 the host.
 Without ``--data`` a small synthetic set (16 / 4 frames) is generated
-under ``--out``. ``--model posenet`` waits for PoseNet's port.
+under ``--out``. ``--model posenet`` trains the point-cloud baseline
+(``models.PoseNet`` at full width; ``--tiny`` and ``--bf16`` apply to
+SingleView3D only, as in JAX).
 """
 
 from __future__ import annotations
@@ -175,15 +177,14 @@ def main(argv=None):
     from ..datasets import ProceduralModels, Transform
     from ..training import loop
 
-    if args.model == "posenet":
-        raise NotImplementedError(
-            "PoseNet is not ported yet (ROADMAP.md queue 1, item 8)")
     n_fg_class = 21
     with_occupancy = args.with_occupancy or "occupancy" in args.loss
     train_ds, val_ds, device_augment = build_datasets(args)
 
     torch.manual_seed(args.seed)
-    if args.tiny:
+    if args.model == "posenet":  # --tiny and --bf16 are SingleView3D's
+        model = models.PoseNet(n_fg_class=n_fg_class, n_point=args.n_point)
+    elif args.tiny:
         model = models.tiny_singleview3d(
             n_fg_class, n_point=args.n_point, with_occupancy=with_occupancy)
     else:

@@ -4,10 +4,14 @@ training transform (numpy and cv2 on the host)."""
 
 # flake8: noqa: F401
 
+from .background_composite import BackgroundComposite
 from .base import ConcatDataset
 from .base import DatasetBase
 from .base import ModelsBase
 from .base import VoxelGrid
+from .instance_segmentation import SyntheticInstanceSegmentationDataset
+from .instance_segmentation import frame_to_class_label
+from .instance_segmentation import frame_to_masks
 from .packed import PackedPoseDataset
 from .packed import is_packed
 from .packed import pack_reindexed

@@ -100,13 +100,46 @@ _COLORS = np.array(
 
 
 class ProceduralModels(ModelsBase):
-    """Analytic-SDF stand-in for ``YCBVideoModels`` (zero assets needed)."""
+    """Analytic-SDF stand-in for ``YCBVideoModels`` (zero assets needed).
+
+    ``textured=True`` gives every class a procedural albedo
+    (``get_point_colors``): a 3-D checker plus a one-sided "label" patch in
+    the complementary colour, both in canonical object coordinates, so the
+    texture rides the object through its pose and its orientation can be
+    told from the image for near-symmetric solids (cans, boxes).
+    """
 
     _n_surface_points = 4000
     _solid_dim = 48
 
-    def __init__(self):
+    def __init__(self, textured: bool = False):
         self._shapes = _build_shapes()
+        self.textured = bool(textured)
+
+    def get_point_colors(self, class_id, points):
+        """Per-point albedo ``(N, 3)`` uint8 in canonical coordinates."""
+        cid = int(class_id)
+        pts = np.asarray(points, dtype=np.float64)
+        base = _COLORS[cid].astype(np.float64)
+        accent = 255.0 - base
+        # 3-D checker at a class-dependent frequency (~15-35 mm cells)
+        f = 28.0 + 3.5 * cid
+        checker = (
+            np.floor(pts[:, 0] * f)
+            + np.floor(pts[:, 1] * (f + 11.0))
+            + np.floor(pts[:, 2] * (f + 23.0))
+        ) % 2.0
+        albedo = base[None, :] * (0.55 + 0.45 * checker[:, None])
+        # one-sided label patch: an angular window about +x, upper half only
+        theta = np.arctan2(pts[:, 1], pts[:, 0])
+        r = np.linalg.norm(pts[:, :2], axis=1)
+        label = (
+            (np.abs(theta - 0.6) < 0.7)
+            & (pts[:, 2] > 0.0)
+            & (r > 0.25 * (r.max() + 1e-9))
+        )
+        albedo = np.where(label[:, None], accent[None, :], albedo)
+        return np.clip(albedo, 0, 255).astype(np.uint8)
 
     @property
     def class_names(self):

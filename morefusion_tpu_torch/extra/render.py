@@ -125,7 +125,13 @@ def render_scene(
         pts_cam = pts @ T[:3, :3].T + T[:3, 3]
         n_cam = normals @ T[:3, :3].T
         shade = 0.45 + 0.55 * np.clip(-(n_cam @ light), 0.0, 1.0)
-        base = models.get_color(cid).astype(np.float64)[None, :]
+        if getattr(models, "textured", False) and hasattr(
+            models, "get_point_colors"
+        ):
+            # per-point albedo in canonical coordinates
+            base = models.get_point_colors(cid, pts).astype(np.float64)
+        else:
+            base = models.get_color(cid).astype(np.float64)[None, :]
         rgb = np.clip(shade[:, None] * base, 0, 255).astype(np.uint8)
 
         all_pts.append(pts_cam)

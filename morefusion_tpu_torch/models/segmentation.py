@@ -96,6 +96,42 @@ class UNetSegmentation(nn.Module):
         return class_logits, self.Conv_1(x)[:, 0]
 
 
+def segmentation_loss(logits, labels, ignore_label: int = -1,
+                      fg_weight: float = 1.0):
+    """Per-pixel softmax cross-entropy; ``ignore_label`` pixels skipped.
+
+    ``logits (B, n_class, H, W)`` (NCHW, as ``UNetSegmentation`` returns
+    them: JAX's ``(B, H, W, n_class)`` with the class axis moved to 1);
+    ``labels (B, H, W)`` int class ids, 0 = background. ``fg_weight``
+    weights foreground pixels; the sum is normalised by the summed weights
+    with a 1e-6 floor, as ``morefusion_tpu.models.segmentation``.
+    """
+    valid = labels != ignore_label
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits, dim=1)
+    ll = torch.gather(logp, 1, safe[:, None])[:, 0]
+    w = torch.where(valid, torch.where(safe > 0, fg_weight, 1.0), 0.0)
+    w = w.to(ll.dtype)
+    return -torch.sum(ll * w) / torch.clamp(torch.sum(w), min=1e-6)
+
+
+def boundary_loss(logits, boundary_true, pos_weight: float = 5.0):
+    """Weighted sigmoid BCE on the instance-boundary head.
+
+    ``logits (B, H, W)`` (the boundary head has one channel, dropped, so
+    the layout is JAX's); ``boundary_true (B, H, W)`` bool or 0/1.
+    Positives are weighted by ``pos_weight``; log-sigmoid on both sides
+    and the denominator ``max(pos_weight * sum(y) + sum(1 - y), 1)``.
+    """
+    y = boundary_true.to(logits.dtype)
+    logp = F.logsigmoid(logits)
+    lognp = F.logsigmoid(-logits)
+    ll = pos_weight * y * logp + (1.0 - y) * lognp
+    denom = torch.clamp(pos_weight * torch.sum(y) + torch.sum(1.0 - y),
+                        min=1.0)
+    return -torch.sum(ll) / denom
+
+
 def boundary_from_instance_label(
     instance_label: np.ndarray, width: int = 2
 ) -> np.ndarray:

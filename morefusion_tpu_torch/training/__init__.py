@@ -18,6 +18,7 @@ from .reporting import LogReport
 from .reporting import load_args
 from .reporting import write_args
 from .checkpoints import CheckpointManager
+from .checkpoints import export_backbone_npz
 from .checkpoints import export_params_npz
 from .checkpoints import import_backbone_npz
 from .checkpoints import import_params_npz

@@ -104,12 +104,30 @@ def params_npz_entries(model) -> dict:
     return out
 
 
+def _write_npz(entries: dict, path: str) -> None:
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **entries)
+    os.replace(tmp, path)
+
+
 def export_params_npz(model, path: str) -> None:
     """Archive ``model``'s weights (``params_npz_entries``) as one
     compressed npz."""
-    tmp = path + ".tmp.npz"
-    np.savez_compressed(tmp, **params_npz_entries(model))
-    os.replace(tmp, path)
+    _write_npz(params_npz_entries(model), path)
+
+
+def export_backbone_npz(model, path: str) -> None:
+    """Archive ``model.resnet_extractor``'s parameters as JAX's
+    ``pretrain_backbone.py`` exports them: keys ``['resnet_extractor'][...]``
+    (the inverse of ``import_backbone_npz``)."""
+    prefix = "['params']"
+    entries = {}
+    for key, arr in params_npz_entries(model.resnet_extractor).items():
+        kind, _, name = key.partition(":")
+        if not name.startswith(prefix):  # BatchNorm statistics
+            raise ValueError(f"not a parameter of the backbone: {name}")
+        entries[f"{kind}:['resnet_extractor']{name[len(prefix):]}"] = arr
+    _write_npz(entries, path)
 
 
 def _load_leaves(template: dict, data: dict, path: str) -> dict:

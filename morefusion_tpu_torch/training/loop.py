@@ -69,7 +69,9 @@ def _pipe_stage(src_iter, fn, stop, depth: int = 2):
 
     Bounded puts re-check ``stop`` so an early-exiting consumer never
     leaves the worker blocked on a full queue; exceptions propagate to the
-    consumer.
+    consumer. Closing the generator sets ``stop`` and joins the worker, so
+    no thread is left running (a daemon thread still in native code when
+    the interpreter exits can abort the process).
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
 
@@ -94,14 +96,19 @@ def _pipe_stage(src_iter, fn, stop, depth: int = 2):
             return
         _put(None)
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is None:
-            return
-        if isinstance(item, Exception):
-            raise item
-        yield item
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join()
 
 
 def _prefetch_to_device(host_iter, device, timing, depth: int = 2):

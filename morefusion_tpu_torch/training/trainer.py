@@ -1,4 +1,5 @@
-"""The SingleView3D train and eval steps of the port.
+"""The pose models' train and eval steps of the port (SingleView3D and
+PoseNet).
 
 Port of ``morefusion_tpu/training/trainer.py`` (``CadPointBank``,
 ``make_train_step``, ``make_eval_step``, ``create_train_state``,
@@ -176,11 +177,20 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _has_occupancy_branch(model):
+    return getattr(model, "with_occupancy", False)
+
+
 def _model_inputs(model, batch):
+    """The forward's keyword inputs from ``batch``, as JAX's step picks
+    them: ``pitch`` only for a model with a voxel grid (``voxel_dim``),
+    the occupancy inputs only for a model with the occupancy branch."""
     kwargs = dict(class_id=batch["class_id"], rgb=batch["rgb"],
-                  pcd=batch["pcd"], pitch=batch["pitch"],
+                  pcd=batch["pcd"],
                   sample_indices=batch.get("sample_indices"))
-    if model.with_occupancy:
+    if "pitch" in batch and hasattr(model, "voxel_dim"):
+        kwargs["pitch"] = batch["pitch"]
+    if _has_occupancy_branch(model):
         kwargs["origin"] = batch.get("origin")
         kwargs["grid_nontarget_empty"] = batch["grid_nontarget_empty"]
     return kwargs
@@ -200,14 +210,15 @@ def make_loss_fn(model, bank: CadPointBank,
     (B, V, V, V) f32 [occupancy]; optionally sample_indices (B, n_point),
     which the model then uses in place of drawing its own.
 
-    A model with the occupancy branch (``model.with_occupancy``) gets the
-    occupancy grids. The occupancy reward / penalty joins the loss when
+    A model with a voxel grid (``voxel_dim``) gets ``pitch``, and one with
+    the occupancy branch (``model.with_occupancy``) the occupancy grids;
+    PoseNet gets neither. The occupancy reward / penalty joins the loss when
     ``occupancy_loss_term`` (default: the model's occupancy branch).
     ``augment`` augments rgb and pcd with ``augment_generator``
     (``augment_device.augment_batch``).
     """
     if occupancy_loss_term is None:
-        occupancy_loss_term = model.with_occupancy
+        occupancy_loss_term = _has_occupancy_branch(model)
 
     def loss_fn(batch, use_symmetric, *, train: bool = True,
                 sample_generator=None, dropout_generator=None,

@@ -423,5 +423,3 @@ def test_train_cli_on_a_packed_set(tmp_path, packed_set):
     with open(os.path.join(out, "log.json")) as f:
         assert [r["iteration"] for r in json.load(f)] == [1, 2]
     assert os.path.isfile(os.path.join(out, "snapshot_trainer_latest"))
-    with pytest.raises(NotImplementedError, match="PoseNet"):
-        cli.main(["--out", out, "--model", "posenet", "--data", packed_set])

@@ -64,7 +64,11 @@ def test_port_sources_exist():
                    "training/checkpoints.py", "training/loop.py",
                    "cli/train.py", "cli/_eval.py", "cli/evaluate.py",
                    "cli/eval_sweep.py", "cli/ablation_report.py",
-                   "cli/icc_diagnose.py", "cli/check_icp_vs_icc.py"):
+                   "cli/icc_diagnose.py", "cli/check_icp_vs_icc.py",
+                   "models/posenet.py", "datasets/background_composite.py",
+                   "datasets/instance_segmentation.py",
+                   "cli/generate_data.py", "cli/train_segmentation.py",
+                   "cli/pretrain_backbone.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 
