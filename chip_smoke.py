@@ -6,7 +6,7 @@
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
 and ``knn.cu``) with ``nvcc`` and makes phase 11's and phase 13's data,
-then runs thirteen phases, each printing one JSON line (phase 13 four, then
+then runs fourteen phases, each printing one JSON line (phase 13 four, then
 its total) with ``elapsed_s``, the seconds since the start:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
@@ -138,7 +138,8 @@ its total) with ``elapsed_s``, the seconds since the start:
    the kernels against the plain versions in deterministic mode (losses
    and poses identical); the card against the CPU: the raw records of a
    few crops with the same pixel draw (ADDs within ``POSE_ATOL``) and the
-   exact-mode problem replayed for ``ICC_REPLAY_ITERATIONS`` (within phase
+   exact-mode problem of that frame's first two crops replayed for
+   ``ICC_REPLAY_ITERATIONS`` (within phase
    9's replay bounds or twice the CPU's own spread under a start jitter,
    see ``exact_replay``);
 13. the rest of training, on phase 11's packed sets and frames made with
@@ -163,7 +164,37 @@ its total) with ``elapsed_s``, the seconds since the start:
    min_dist launches; (d)
    ``cli.pretrain_backbone`` on phase 11's two sets (width 64, bf16, 60
    steps) with its rotation accuracy, then one ``cli.train
-   --pretrained-backbone`` step whose backbone is the export in bf16.
+   --pretrained-backbone`` step whose backbone is the export in bf16;
+14. replay, occupancy registration and the offline tools: (a)
+   ``occupancy_grid_3d`` at 32^3 x 4000 and 24^3 x 800 CAD points, kernel
+   against plain in deterministic mode (grids and point gradients
+   identical), its kernel call timed as in phase 4;
+   ``cli.align_occupancy_grids`` at its defaults, counted (one min_dist
+   launch an iteration), its ms an iteration, and its first
+   ``OCC_CPU_ITERATIONS`` steps against the CPU's within the CPU's own
+   spread under a start jitter; (b) ``cli.replay_eval`` at its defaults with
+   ``--with-icp`` (24 frames, 5 objects, 240x320, the committed occ
+   checkpoint, fp32) on a sequence it records, counted: the mean ADD of raw,
+   voted, refined and refined+ICP poses, frames per second; then its first
+   ``REPLAY_SYNC_FRAMES`` frames replayed on the card and the CPU in
+   deterministic mode (n_votes 1, ICC at ``ICC_REPLAY_ITERATIONS``): labels,
+   grids, spawns and ICC problems identical, poses within
+   ``PIPE_POSE_ATOL``; the CPU's ICC problems refined on the card from the
+   CPU's starts, as phase 9 replays them (poses within ``PIPE_POSE_ATOL``,
+   losses within ``ICC_LOSS_ATOL``); one replayed ICC problem refined with
+   the kernel and the plain version, identical, and the first replayed
+   frame's ICP rows with the knn kernel and its plain version, identical;
+   (c)
+   ``IterativeCollisionCheck(pad_objects=False)`` on 5 objects, kernel
+   against plain identical, counted, and timed in turns with the padded
+   refine (8 slots); (d) ``max_voxelization_3d``,
+   ``interpolate_voxel_grid_sorted`` (its backward run twice: repeatable)
+   and ``truncated_distance_function_scatter`` on the card against the CPU
+   at the train step's shapes; (e) ``cli.stratify_results`` on phase 12's
+   dump and phase 11's val set, ``cli.rescore_results`` on the val set's
+   true poses and a perturbed copy, and ``cli.align_pointclouds`` at its
+   defaults, counted, and run again with the knn kernel and its plain
+   version: ADDs identical.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -174,6 +205,7 @@ caller of the port gets them.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -1995,12 +2027,11 @@ def run_sync_pass(models, frames, model, device, voxel_dim, n_votes):
     return out, problems
 
 
-def compare_sync_passes(got, want, got_problems, want_problems, device):
-    """Card pass ``got`` against CPU pass ``want``. Returns the numbers,
-    and the list of what disagreed beyond its bound."""
-    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
-
-    bad = []
+def compare_frames(got, want, bad):
+    """Frame by frame: tracked labels, instance classes, uint8 grids and
+    spawns equal, the same instances. Appends what differs to ``bad``;
+    returns the largest pose difference and the largest refined-pose
+    difference."""
     pose_err = 0.0
     refined_err = 0.0
     for k, (g, w) in enumerate(zip(got, want)):
@@ -2028,6 +2059,28 @@ def compare_sync_passes(got, want, got_problems, want_problems, device):
                 refined_err = max(refined_err, float(np.abs(
                     r["T_cad2world_refined"]
                     - w["poses"][i]["T_cad2world_refined"]).max()))
+    return pose_err, refined_err
+
+
+def compare_problems(gp, wp, bad):
+    """Two recorded ICC problems: start poses within the pose bound, the
+    rest equal."""
+    start = float(np.abs(np.stack(gp["args"][0])
+                         - np.stack(wp["args"][0])).max())
+    if start > PIPE_POSE_ATOL:
+        bad.append(f"ICC start poses {start} apart")
+    if any(not np.array_equal(x, y) for a, b in zip(
+            gp["args"][1:], wp["args"][1:]) for x, y in zip(a, b)):
+        bad.append("ICC problems differ")
+
+
+def compare_sync_passes(got, want, got_problems, want_problems, device):
+    """Card pass ``got`` against CPU pass ``want``. Returns the numbers,
+    and the list of what disagreed beyond its bound."""
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+
+    bad = []
+    pose_err, refined_err = compare_frames(got, want, bad)
     if pose_err > PIPE_POSE_ATOL:
         bad.append(f"poses {pose_err} apart")
     # the ICC problems: start poses within the pose bound, the rest equal;
@@ -2037,13 +2090,7 @@ def compare_sync_passes(got, want, got_problems, want_problems, device):
     if len(got_problems) != len(want_problems):
         bad.append(f"{len(got_problems)} vs {len(want_problems)} refines")
     for k, (gp, wp) in enumerate(zip(got_problems, want_problems)):
-        start = float(np.abs(np.stack(gp["args"][0])
-                             - np.stack(wp["args"][0])).max())
-        if start > PIPE_POSE_ATOL:
-            bad.append(f"ICC start poses {start} apart")
-        if any(not np.array_equal(x, y) for a, b in zip(
-                gp["args"][1:], wp["args"][1:]) for x, y in zip(a, b)):
-            bad.append("ICC problems differ")
+        compare_problems(gp, wp, bad)
         kw = {k: v for k, v in wp["kw"].items() if k != "device"}
         T_g, l_g, n_g = IterativeCollisionCheck(
             *wp["args"], **kw, device=device).refine(
@@ -2911,6 +2958,12 @@ def evaluate_run(device, counts, argv):
     return row
 
 
+def evaluation_dump(fit_root):
+    """Where phase 12 writes its resample run's records (``cli.evaluate
+    --out``), outside the directory it removes."""
+    return os.path.join(fit_root, "evaluation_resample.json")
+
+
 def first_frame(ds, lo, hi):
     """The crop indices of the first frame of ``lo`` to ``hi`` crops, else
     of the largest frame."""
@@ -3055,7 +3108,9 @@ def run_evaluation(device, small, counts, fit_root):
         s["main/add_or_add_s/auc"]) for s in found.values()),
         f"evaluation: ablation rows {list(found)}")
     runs_out = {
-        "resample": evaluate_run(device, counts, common + n_ex),
+        # its dump feeds phase 14's stratify_results
+        "resample": evaluate_run(device, counts, common + n_ex + [
+            "--out", evaluation_dump(fit_root)]),
         "exact": evaluate_run(device, counts, common + n_ex + [
             "--icc-cross-mode", "exact"]),
         "scale2_coarse_to_fine_decay": evaluate_run(
@@ -3083,8 +3138,7 @@ def run_evaluation(device, small, counts, fit_root):
 
     # kernel against plain: one frame's joint problem, in exact mode and
     # at scale 2, deterministic
-    # (3-4 objects: 4 lanes, so that the CPU's exact replay below stays
-    # within seconds)
+    # (3-4 objects: 4 lanes)
     t0 = time.perf_counter()
     ds = _eval.open_val(data)
     idxs = first_frame(ds, 3, 4)
@@ -3129,8 +3183,13 @@ def run_evaluation(device, small, counts, fit_root):
     check(raw_err <= POSE_ATOL, f"evaluation: card and CPU ADDs {raw_err} "
                                 "apart")
     seconds["card_vs_cpu_raw"] = time.perf_counter() - t0
+    # the exact-mode replay on the frame's first two crops: its CPU side
+    # grows as the square of the objects (~265 s at 3 objects on the card's
+    # host), so two leave room for phase 14
     t0 = time.perf_counter()
-    replay = exact_replay(device, occ, data, T0, problem)
+    replay_idxs = idxs[:2]
+    replay = exact_replay(device, occ, data,
+                          *icc_frame_problem(device, occ, data, replay_idxs))
     seconds["card_vs_cpu_exact_replay"] = time.perf_counter() - t0
     shutil.rmtree(root)
 
@@ -3146,7 +3205,7 @@ def run_evaluation(device, small, counts, fit_root):
         kernel_vs_plain=dict(tolerance="identical", **vs_plain),
         card_vs_cpu=dict(raw_crops=cfg["cpu_examples"],
                          raw_max_add_err=raw_err, raw_tolerance=POSE_ATOL,
-                         exact_replay=dict(objects=len(idxs),
+                         exact_replay=dict(objects=len(replay_idxs),
                                            **replay))))
     return launches
 
@@ -3695,6 +3754,591 @@ def phase_rest(device, small, counts, fit_root, data, setup, models_bank,
     return textured, posenet, segmenter
 
 
+# -------------------------------------------------------------- phase 14
+
+# replay, occupancy registration and the offline tools (phase 14)
+# occupancy_grid_3d's shapes: (grid side, CAD points of class 21, threshold)
+OCC_SHAPES = ((32, 4000, 2.0), (24, 800, 1.0))
+OCC_SHAPES_SMALL = ((16, 800, 2.0), (12, 300, 1.0))
+# align_occupancy_grids, card against CPU: the first OCC_CPU_ITERATIONS
+# steps of the card's run against the same steps on the CPU; Adam's
+# quaternion rate of 0.1 makes the run chaotic (tests/
+# test_torch_occupancy_registration.py), so the ADDs are held within the
+# CPU's own spread under ICC_START_JITTER (ICC_JITTER_RUNS runs) plus
+# OCC_ADD_ATOL
+OCC_CPU_ITERATIONS = 10
+OCC_ADD_ATOL = 1e-5
+# replay_eval's frames replayed on the card and the CPU
+REPLAY_SYNC_FRAMES = 3
+# the rest of functions/ at the train step's shapes: B lanes of P points,
+# V^3 grids, C channels
+FUNC_FULL = dict(B=16, P=1000, V=32, C=32)
+FUNC_SMALL = dict(B=2, P=200, V=12, C=4)
+FUNC_ATOL = 1e-5  # card against CPU, relative to the largest entry
+
+
+def occupancy_inputs(bank, V, n, device, seed=0):
+    """``n`` CAD points of class 21 under a random rotation, in a ``V^3``
+    grid of the class's pitch centred on them."""
+    g = np.random.RandomState(seed)
+    pcd = bank.get_pcd(21)[:n] @ random_rotation(g).T
+    pitch = float(bank.get_voxel_pitch(V, 21))
+    origin = np.full(3, -pitch * (V / 2.0 - 0.5), np.float32)
+    return (torch.from_numpy(pcd.astype(np.float32)).to(device), pitch,
+            origin)
+
+
+def phase_occupancy(device, small, counts, bank):
+    """(a) ``occupancy_grid_3d`` with the kernel against the plain version;
+    its kernel call timed; ``cli.align_occupancy_grids`` at its defaults,
+    counted, and against the CPU."""
+    from morefusion_tpu_torch import functions as F
+    from morefusion_tpu_torch.cli import align_occupancy_grids as aog
+    from morefusion_tpu_torch.contrib import OccupancyRegistration
+    from morefusion_tpu_torch.metrics import average_distance
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    grids = {}
+    for V, n, thr in OCC_SHAPES_SMALL if small else OCC_SHAPES:
+        points, pitch, origin = occupancy_inputs(bank, V, n, device)
+        w = torch.from_numpy(np.random.RandomState(V).rand(V, V, V).astype(
+            np.float32)).to(device)
+
+        def grid_and_grad():
+            p = points.clone().requires_grad_(True)
+            grid = F.occupancy_grid_3d(p, pitch=pitch, origin=origin,
+                                       dims=(V,) * 3, threshold=thr)
+            (grid * w).sum().backward()
+            return grid.detach(), p.grad
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            grid_k, g_k = grid_and_grad()
+            with mock.patch.object(md, "min_dist_voxels",
+                                   md.min_dist_voxels_plain):
+                grid_p, g_p = grid_and_grad()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(torch.equal(grid_k, grid_p) and torch.equal(g_k, g_p),
+              f"occupancy {V}^3 x {n}: kernel and plain grids or gradients "
+              "differ")
+        check(bool(grid_k.max() > 0.9) and bool(torch.isfinite(g_k).all()),
+              f"occupancy {V}^3 x {n}: empty grid or bad gradient")
+        ip = ((points - torch.from_numpy(origin).to(device)) / pitch)[None]
+        timing = min_dist_timing(
+            device, ip.contiguous(),
+            torch.ones((1, n), dtype=torch.bool, device=device),
+            torch.zeros((1, n), dtype=torch.int32, device=device),
+            100, (V, V, V))
+        grids[f"{V}^3x{n}"] = dict(threshold=thr, occupied=int(
+            (grid_k > 0).sum()), kernel_vs_plain="identical", **timing)
+
+    # align_occupancy_grids at its defaults: the main path, counted
+    argv = ["--voxel-dim", "16", "--iterations", "10"] if small else []
+    args = aog.parse_args(argv)
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    adds, lines = quiet(aog.main, argv + ["--device", device.type])
+    wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    check(len(adds) == args.iterations + 1 and np.isfinite(adds).all(),
+          f"align_occupancy_grids: {len(adds)} ADDs")
+    if device.type == "cuda":
+        check(launches["min_dist_voxels"] == args.iterations,
+              f"align_occupancy_grids: {launches['min_dist_voxels']} "
+              f"min_dist launches for {args.iterations} iterations")
+
+    # the registration alone, and its first steps on the CPU
+    _, _, T_true, pitch, origin, target, cad = aog.target_problem(args)
+    T_init = aog._perturbed(T_true, np.random.RandomState(args.seed))
+
+    def registration(dev, T0):
+        return OccupancyRegistration(cad, target, pitch=pitch, origin=origin,
+                                     threshold=2.0, transform_init=T0,
+                                     device=dev)
+
+    reg = registration(device, T_init)
+    sync(device)
+    t0 = time.perf_counter()
+    reg.register(args.iterations)  # ends in a read
+    ms_per_iteration = (time.perf_counter() - t0) * 1e3 / args.iterations
+
+    def cpu_adds(T0):
+        return np.array([average_distance([cad], [T_true], [T])[0][0]
+                         for T in registration("cpu", T0).register_iterative(
+                             OCC_CPU_ITERATIONS)])
+
+    n = OCC_CPU_ITERATIONS + 1
+    cpu = cpu_adds(T_init)
+    err = float(np.abs(np.asarray(adds[:n]) - cpu).max())
+    rng = np.random.RandomState(0)
+    spread = 0.0
+    for _ in range(ICC_JITTER_RUNS):
+        T0 = T_init.copy()
+        T0[:3, 3] += rng.normal(0, ICC_START_JITTER, 3)
+        spread = max(spread, float(np.abs(cpu_adds(T0) - cpu).max()))
+    check(err <= spread + OCC_ADD_ATOL,
+          f"align_occupancy_grids: card ADDs {err} from the CPU's over "
+          f"{OCC_CPU_ITERATIONS} steps, beyond the CPU's spread {spread}")
+    row = dict(grids=grids, align_occupancy_grids=dict(
+        argv=argv, voxel_dim=args.voxel_dim, iterations=args.iterations,
+        cad_points=len(cad), wall_s=wall_s,
+        registration_ms_per_iteration=ms_per_iteration, launches=launches,
+        add_first=adds[0], add_last=adds[-1], add_min=float(min(adds)),
+        lines=lines, card_vs_cpu=dict(
+            iterations=OCC_CPU_ITERATIONS, max_add_err=err,
+            cpu_jitter_spread=spread, jitter=ICC_START_JITTER,
+            jitter_runs=ICC_JITTER_RUNS, atol=OCC_ADD_ATOL)))
+    return row, launches
+
+
+def sequence_stream_frame(f):
+    return dict(rgb=f["rgb"].astype(np.float32), depth=f["depth"],
+                K=f["intrinsic_matrix"], T_cam2world=f["T_cam2world"],
+                instance_label=f["instance_label"],
+                instance_to_class={int(i): int(c) for i, c in zip(
+                    f["instance_ids"], f["class_ids"])})
+
+
+def shorter_icc(pipeline_module, n_iterations, max_points=None):
+    """Patch the pipeline's ICC to refine ``n_iterations`` iterations (and
+    keep at most ``max_points`` points an object)."""
+    base = pipeline_module.IterativeCollisionCheck
+
+    class Shorter(base):
+        def __init__(self, *args, **kw):
+            if max_points:
+                kw["max_points"] = max_points
+            super().__init__(*args, **kw)
+
+        def refine_async(self, iterations=30, **kw):
+            super().refine_async(iterations=n_iterations, **kw)
+
+        def refine(self, iterations=30, **kw):
+            return super().refine(iterations=n_iterations, **kw)
+
+    return mock.patch.object(pipeline_module, "IterativeCollisionCheck",
+                             Shorter)
+
+
+def phase_replay(device, small, counts, bank, root):
+    """(b) ``cli.replay_eval`` at its defaults with ``--with-icp`` on a
+    sequence it records, counted; then its first frames replayed on the
+    card and the CPU, one replayed ICC problem kernel against plain, and
+    the first replayed frame's ICP rows kernel against plain."""
+    from morefusion_tpu_torch import runtime, training
+    from morefusion_tpu_torch.cli import _eval, replay_eval
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.runtime import pipeline as pipeline_module
+
+    runs = eval_runs(os.path.join(root, "runs"), small, names=("occ",))
+    occ = os.path.join(runs, "occ")
+    seq = os.path.join(root, "sequence")
+    argv = ["--log-dir", occ, "--sequence", seq, "--with-icp", "--out",
+            os.path.join(root, "replay_eval.json"), "--device", device.type]
+    if small:  # fewer frames and points, no warm-up refines; a seeded
+        # tiny model's poses never agree over 3 votes
+        argv += ["--n-frames", "3", "--n-objects", "2", "--image-shape",
+                 "120", "160", "--n-votes", "1"]
+    args = replay_eval.parse_args(argv)
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if small:
+            stack.enter_context(shorter_icc(pipeline_module, 30, 128))
+            stack.enter_context(mock.patch.object(
+                runtime.ScenePipeline, "warmup", lambda self, *a: None))
+        (summary, rows, loop_s), lines = quiet(replay_eval.main, argv)
+    wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    n_frames = summary["n_frames"]
+    check(n_frames == args.n_frames and rows,
+          f"replay_eval: {n_frames} frames, {len(rows)} rows")
+    for key in replay_eval.KEYS:
+        check(key in summary and np.isfinite(summary[key]["mean"]),
+              f"replay_eval: no {key} mean in {sorted(summary)}")
+    if device.type == "cuda":
+        check(launches["min_dist_voxels"] > 0 and launches["nn_indices"] > 0,
+              f"replay_eval: launches {launches}")
+        check(launches["min_dist_voxels"] % 30 == 0,
+              f"replay_eval: {launches['min_dist_voxels']} min_dist launches"
+              " are no whole number of 30-iteration refines")
+
+    # the first frames on the card and on the CPU, deterministic, every
+    # frame refined (n_votes 1) for ICC_REPLAY_ITERATIONS iterations
+    raw = list(runtime.load_sequence(seq))[:REPLAY_SYNC_FRAMES]
+    frames = [sequence_stream_frame(f) for f in raw]
+    train_args = training.load_args(occ)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with shorter_icc(pipeline_module, ICC_REPLAY_ITERATIONS,
+                         128 if small else None):
+            passes = [run_sync_pass(
+                bank, frames, _eval.restore(_eval.build_model(
+                    train_args, dev), occ), dev, 32, 1)
+                for dev in (device, "cpu")]
+        (got, got_problems), (want, want_problems) = passes
+        bad = []
+        pose_err, refined_err = compare_frames(got, want, bad)
+        if pose_err > PIPE_POSE_ATOL:
+            bad.append(f"poses {pose_err} apart")
+        if len(got_problems) != len(want_problems) or not got_problems:
+            bad.append(f"{len(got_problems)} vs {len(want_problems)} "
+                       "refines")
+
+        def problem_kw(p, dev):
+            kw = dict(p["kw"], device=dev)
+            if small:
+                kw["max_points"] = 128
+            return kw
+
+        # the CPU's problems refined on the card from the CPU's starts
+        replay = dict(pose=0.0, loss=0.0)
+        for gp, wp in zip(got_problems, want_problems):
+            compare_problems(gp, wp, bad)
+            T_g, l_g, n_g = IterativeCollisionCheck(
+                *wp["args"], **problem_kw(wp, device)).refine(
+                    iterations=ICC_REPLAY_ITERATIONS)
+            T_w, l_w, n_w = wp["refined"]
+            replay["pose"] = max(replay["pose"], float(np.abs(
+                T_g - T_w).max()))
+            replay["loss"] = max(replay["loss"], float(np.abs(
+                l_g - l_w).max()))
+            if n_g != n_w:
+                bad.append(f"ICC replay n_iter {n_g} vs {n_w}")
+        bound = dict(pose=PIPE_POSE_ATOL, loss=ICC_LOSS_ATOL)
+        if any(replay[k] > bound[k] for k in bound):
+            bad.append(f"ICC replays card vs CPU {replay}, bounds {bound}")
+        check(not bad, "replay card vs cpu: " + "; ".join(bad))
+
+        # one replayed frame's problem, kernel against plain
+        p = got_problems[-1]
+        iterations = ICC_PIPELINE_ITERATIONS if not small else 2
+        torch.use_deterministic_algorithms(True)
+        T_k, l_k, n_k = IterativeCollisionCheck(
+            *p["args"], **problem_kw(p, device)).refine(
+                iterations=iterations)
+        with mock.patch.object(md, "min_dist_voxels",
+                               md.min_dist_voxels_plain):
+            T_p, l_p, n_p = IterativeCollisionCheck(
+                *p["args"], **problem_kw(p, device)).refine(
+                    iterations=iterations)
+
+        # the first replayed frame's ICP rows (replay_eval's own), kernel
+        # against plain, from its true poses moved 1 cm
+        f0, icp_same = raw[0], []
+        for k, gid in enumerate(f0["instance_ids"]):
+            T_ref = f0["T_cam2world"] @ f0["Ts_cad2cam"][k]
+            T_ref[:3, 3] += 0.01
+            row_args = (f0, int(gid), T_ref, int(f0["class_ids"][k]), bank,
+                        device)
+            T_icp = replay_eval._icp_row(*row_args)
+            with mock.patch.object(knn, "nn_indices", knn.nn_indices_plain):
+                T_icp_plain = replay_eval._icp_row(*row_args)
+            if T_icp is not None:
+                icp_same.append(np.array_equal(T_icp, T_icp_plain))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(n_k == n_p and np.array_equal(T_k, T_p)
+          and np.array_equal(l_k, l_p),
+          "replay: the ICC problem's refine differs kernel against plain")
+    check(icp_same and all(icp_same),
+          f"replay: ICP rows kernel against plain identical {icp_same}")
+    sync_s = time.perf_counter() - t0
+    row = dict(argv=argv, n_frames=n_frames, n_objects=args.n_objects,
+               image_shape=list(args.image_shape), wall_s=wall_s,
+               loop_s=loop_s, frames_per_s=n_frames / loop_s,
+               launches=launches, n_rows=len(rows),
+               add_mean={k: summary[k]["mean"] for k in replay_eval.KEYS},
+               summary=summary, card_vs_cpu=dict(
+                   frames=len(frames), n_votes=1,
+                   icc_iterations=ICC_REPLAY_ITERATIONS,
+                   max_pose_err=pose_err, refines=len(got_problems),
+                   refined_from_own_starts_max_pose_err=refined_err,
+                   icc_replay=dict(err=replay, bound=bound),
+                   tolerance=dict(pose=PIPE_POSE_ATOL,
+                                  labels_grids_spawns_problems="identical"),
+                   seconds=sync_s),
+               icc_kernel_vs_plain=dict(objects=len(p["args"][0]),
+                                        iterations=iterations, n_iter=n_k,
+                                        tolerance="identical"),
+               icp_kernel_vs_plain=dict(rows=len(icp_same),
+                                        tolerance="identical"))
+    return row, launches
+
+
+def phase_unpadded_icc(device, small, counts):
+    """(c) ``IterativeCollisionCheck(pad_objects=False)`` on 5 objects,
+    kernel against plain, counted and timed beside the padded refine (8
+    slots)."""
+    from morefusion_tpu_torch.contrib import IterativeCollisionCheck
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    N, M, V = (5, 2048, 32) if not small else (5, 256, 16)
+    scene = make_icc_scene(5, N, M, V)
+
+    def icc(pad):
+        return IterativeCollisionCheck(*scene, voxel_dim=V, max_points=M,
+                                       pad_objects=pad, device=device)
+
+    check(icc(False)._arrays["points"].shape[0] == N
+          and icc(True)._arrays["points"].shape[0] == 8,
+          "unpadded icc: object slots")
+    torch.use_deterministic_algorithms(True)
+    try:
+        T_k, l_k, n_k = icc(False).refine()
+        with mock.patch.object(md, "min_dist_voxels",
+                               md.min_dist_voxels_plain):
+            T_p, l_p, n_p = icc(False).refine()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(n_k == n_p and np.array_equal(T_k, T_p)
+          and np.array_equal(l_k, l_p),
+          "unpadded icc: kernel and plain refines differ")
+    for c in counts:
+        c.launches = 0
+    icc(False).refine()
+    launches = {c.__name__: c.launches for c in counts}
+    if device.type == "cuda":
+        check(launches["min_dist_voxels"] == 30,
+              f"unpadded icc: {launches['min_dist_voxels']} launches")
+    reps = 10 if not small else 1
+    refine_ms = {}
+    for name, pad in (("unpadded", False), ("padded", True),
+                      ("unpadded_again", False), ("padded_again", True)):
+        iccs = [icc(pad) for _ in range(reps)]
+        sync(device)
+        t0 = time.perf_counter()
+        for x in iccs:
+            x.refine()
+        sync(device)
+        refine_ms[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return dict(objects=N, points=M, voxel_dim=V, n_iter=n_k,
+                kernel_vs_plain="identical", launches=launches,
+                refine_ms_in_turns=refine_ms), launches
+
+
+def function_inputs(cfg, device, seed=0):
+    g = np.random.RandomState(seed)
+    B, P, V, C = cfg["B"], cfg["P"], cfg["V"], cfg["C"]
+    n = B * P
+    return {k: torch.from_numpy(v).to(device) for k, v in dict(
+        values=g.normal(size=(n, C)).astype(np.float32),
+        points=g.uniform(-0.02, 0.34, (n, 3)).astype(np.float32),
+        batch=np.repeat(np.arange(B), P).astype(np.int32),
+        intensities=g.rand(n).astype(np.float32),
+        grid=g.normal(size=(B, V, V, V, C)).astype(np.float32),
+        vox=g.uniform(-1.0, V + 0.5, (n, 3)).astype(np.float32),
+        cot=g.normal(size=(n, C)).astype(np.float32)).items()}
+
+
+def phase_functions(device, small):
+    """(d) ``max_voxelization_3d``, ``interpolate_voxel_grid_sorted``
+    (forward and backward) and ``truncated_distance_function_scatter`` on
+    the card against the CPU at the train step's shapes, each timed; the
+    interpolation's backward run twice on the card."""
+    from morefusion_tpu_torch import functions as F
+    from morefusion_tpu_torch.functions import tdf as tdf_module
+
+    cfg = FUNC_SMALL if small else FUNC_FULL
+    B, P, V = cfg["B"], cfg["P"], cfg["V"]
+    x = {dev: function_inputs(cfg, dev) for dev in (device, "cpu")}
+    vox_kw = dict(batch_size=B, origin=(0.0, 0.0, 0.0), pitch=0.01,
+                  dimensions=V)
+
+    def max_vox(a):
+        v = a["values"].clone().requires_grad_(True)
+        grid, idx = F.max_voxelization_3d(v, a["points"], a["batch"],
+                                          a["intensities"], **vox_kw,
+                                          return_indices=True)
+        grid.sum().backward()
+        return grid.detach(), idx, v.grad
+
+    def interp(fn, a):
+        g = a["grid"].clone().requires_grad_(True)
+        p = a["vox"].clone().requires_grad_(True)
+        out = fn(g, p, a["batch"])
+        (out * a["cot"]).sum().backward()
+        return out.detach(), g.grad, p.grad
+
+    def tdf(a):
+        return [tdf_module.truncated_distance_function_scatter(
+            a["points"][b * P:(b + 1) * P], pitch=0.01, origin=(0.0,) * 3,
+            dims=(V,) * 3, truncation=0.02, return_indices=True)
+            for b in range(B)]
+
+    def rel(got, want):
+        got = got.cpu()
+        return float((got - want).abs().max() / want.abs().max().clamp_min(
+            1e-30))
+
+    out = {}
+    g, w = max_vox(x[device]), max_vox(x["cpu"])
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(g, w)),
+          "max_voxelization_3d: card and CPU differ")
+    out["max_voxelization_3d"] = dict(identical=True, winners=int(
+        (w[1] >= 0).sum()))
+    g = interp(F.interpolate_voxel_grid_sorted, x[device])
+    w = interp(F.interpolate_voxel_grid_sorted, x["cpu"])
+    errs = [rel(a, b) for a, b in zip(g, w)]
+    check(max(errs) <= FUNC_ATOL,
+          f"interpolate_voxel_grid_sorted: card vs CPU {errs}")
+    again = interp(F.interpolate_voxel_grid_sorted, x[device])
+    check(all(torch.equal(a, b) for a, b in zip(g, again)),
+          "interpolate_voxel_grid_sorted: two backward passes on the card "
+          "differ")
+    out["interpolate_voxel_grid_sorted"] = dict(
+        rel_err=dict(zip(("values", "grid_grad", "points_grad"), errs)),
+        backward_repeatable=True)
+    g, w = tdf(x[device]), tdf(x["cpu"])
+    t_err = max(rel(a[0], b[0]) for a, b in zip(g, w))
+    check(t_err <= FUNC_ATOL and all(torch.equal(a[1].cpu(), b[1])
+                                     for a, b in zip(g, w)),
+          f"truncated_distance_function_scatter: card vs CPU {t_err}")
+    out["truncated_distance_function_scatter"] = dict(
+        lanes=B, rel_err=t_err, winners_identical=True)
+    if device.type == "cuda":
+        a = x[device]
+        out["ms"] = dict(
+            max_voxelization_3d=cuda_ms(lambda: max_vox(a), 10),
+            interpolate_voxel_grid_sorted=cuda_ms(
+                lambda: interp(F.interpolate_voxel_grid_sorted, a), 10),
+            truncated_distance_function_scatter_16_lanes=cuda_ms(
+                lambda: tdf(a), 5))
+    return dict(shape=cfg, **out)
+
+
+def phase_host_tools(device, small, counts, fit_root, root):
+    """(e) ``cli.stratify_results`` on phase 12's dump and phase 11's val
+    set, ``cli.rescore_results`` on the val set's true poses and a
+    perturbed copy, ``cli.align_pointclouds`` at its defaults, counted."""
+    from morefusion_tpu_torch.cli import (
+        align_pointclouds,
+        rescore_results,
+        stratify_results,
+    )
+    from morefusion_tpu_torch.geometry import quaternion_matrix_np
+    from morefusion_tpu_torch.ops import knn
+
+    out = {}
+    val = os.path.join(fit_root, "val")
+    scalars = dict(np.load(os.path.join(val, "scalars.npz")))
+    dump = read_json(evaluation_dump(fit_root))
+    n = len(dump["records"]["morefusion"]["class_id"])
+    if n < len(scalars["class_id"]):  # the rehearsal evaluates a few crops
+        val = os.path.join(root, "val_cut")
+        os.makedirs(val)
+        np.savez(os.path.join(val, "scalars.npz"),
+                 **{k: v[:n] for k, v in scalars.items()})
+    report, lines = quiet(stratify_results.main, [
+        "--artifact", evaluation_dump(fit_root), "--val-packed", val,
+        "--out", os.path.join(root, "strata.json")])
+    check(sorted(report["methods"]) == ["morefusion", "morefusion+icp"]
+          and all(np.isfinite(m["macro_auc"])
+                  for m in report["methods"].values()),
+          f"stratify_results: {report}")
+    out["stratify_results"] = dict(crops=n, report=report)
+
+    g = np.random.RandomState(0)
+    gts, results = [], []
+    for i, (cid, q, t) in enumerate(zip(scalars["class_id"],
+                                        scalars["quaternion_true"],
+                                        scalars["translation_true"])):
+        T = quaternion_matrix_np(q)
+        T[:3, 3] = t
+        gts.append(dict(image_id=f"{i:06d}", class_id=int(cid),
+                        T_cad2cam=T.ravel().tolist()))
+        dT = np.eye(4)
+        dT[:3, :3] = random_rotation_near(g, 0.05)
+        dT[:3, 3] = g.normal(0, 0.01, 3)
+        results.append(dict(gts[-1], T_cad2cam=(T @ dT).ravel().tolist()))
+    paths = {}
+    for name, rows in (("gt", gts), ("results", results)):
+        paths[name] = os.path.join(root, name + ".json")
+        with open(paths[name], "w") as f:
+            json.dump(rows, f)
+    summary, lines = quiet(rescore_results.main, [
+        "--results", paths["results"], "--ground-truth", paths["gt"]])
+    auc = summary["main/add_or_add_s/auc"]
+    check(0.0 < auc < 1.0, f"rescore_results: ADD(-S) AUC {auc}")
+    out["rescore_results"] = dict(records=len(gts), perturbation=dict(
+        rotation="random_rotation_near 0.05", translation_m=0.01),
+        add_or_add_s_auc=auc, add_s_auc=summary["main/add_s/auc"],
+        line=lines[-1])
+
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    (adds_init, adds_icp), lines = quiet(
+        align_pointclouds.main, ["--device", device.type])
+    wall_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    check(adds_icp and np.isfinite(adds_icp).all(),
+          f"align_pointclouds: {lines}")
+    if device.type == "cuda":
+        check(0 < launches["nn_indices"] <= 50 * len(adds_icp),
+              f"align_pointclouds: {launches['nn_indices']} knn launches")
+    # kernel against plain, deterministic
+    torch.use_deterministic_algorithms(True)
+    try:
+        adds_k = quiet(align_pointclouds.main, ["--device", device.type])[0]
+        with mock.patch.object(knn, "nn_indices", knn.nn_indices_plain):
+            adds_p = quiet(align_pointclouds.main,
+                           ["--device", device.type])[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(adds_k == adds_p, f"align_pointclouds: ADDs kernel {adds_k} "
+                            f"against plain {adds_p}")
+    out["align_pointclouds"] = dict(
+        instances=len(adds_icp), mean_add_init=float(np.mean(adds_init)),
+        mean_add_icp=float(np.mean(adds_icp)), wall_s=wall_s,
+        launches=launches, kernel_vs_plain="identical")
+    return out, launches
+
+
+def phase_replay_and_tools(device, small, counts, fit_root):
+    """Phase 14: replay, occupancy registration and the offline tools, (a)
+    to (e); returns each path's launches."""
+    import shutil
+
+    from morefusion_tpu_torch.datasets import ProceduralModels
+
+    t0 = time.perf_counter()
+    root = os.path.join(fit_root, "replay")
+    os.makedirs(root)
+    bank = ProceduralModels()
+    seconds = {}
+    t = time.perf_counter()
+    occupancy, occ_launches = phase_occupancy(device, small, counts, bank)
+    seconds["occupancy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    replay, replay_launches = phase_replay(device, small, counts, bank, root)
+    seconds["replay"] = time.perf_counter() - t
+    t = time.perf_counter()
+    unpadded, unpadded_launches = phase_unpadded_icc(device, small, counts)
+    seconds["unpadded_icc"] = time.perf_counter() - t
+    t = time.perf_counter()
+    functions = phase_functions(device, small)
+    seconds["functions"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tools, align_launches = phase_host_tools(device, small, counts, fit_root,
+                                             root)
+    seconds["host_tools"] = time.perf_counter() - t
+    shutil.rmtree(root)
+    seconds["total"] = time.perf_counter() - t0
+    emit(dict(phase="replay_and_tools", ok=True, device=str(device),
+              occupancy=occupancy, replay=replay, unpadded_icc=unpadded,
+              functions=functions, host_tools=tools, seconds=seconds))
+    return dict(occupancy_registration=occ_launches, replay=replay_launches,
+                unpadded_icc=unpadded_launches,
+                align_pointclouds=align_launches), occupancy
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3782,6 +4426,9 @@ def run_phases(device, small, counts, native_build, fit_root):
     textured_launches, posenet_launches, trained_seg_launches = phase_rest(
         device, small, counts, fit_root, rest_data_info, setup,
         scene_models, frames, model16)
+    p14, occupancy = phase_replay_and_tools(device, small, counts, fit_root)
+    # the first shape is align_occupancy_grids' (its defaults)
+    occ_timing = next(iter(occupancy["grids"].values()))
 
     kernels = [dict(
         name="min_dist", route="cuda",
@@ -3794,7 +4441,9 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + eval_launches["min_dist_voxels"]
                   + textured_launches["min_dist_voxels"]
                   + posenet_launches["min_dist_voxels"]
-                  + trained_seg_launches),
+                  + trained_seg_launches
+                  + sum(p14[k]["min_dist_voxels"] for k in (
+                      "occupancy_registration", "replay", "unpadded_icc"))),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -3807,7 +4456,13 @@ def run_phases(device, small, counts, native_build, fit_root):
                                   "min_dist_voxels"],
                               posenet_fit=posenet_launches["min_dist_voxels"],
                               scene_pipeline_trained_segmenter=(
-                                  trained_seg_launches)),
+                                  trained_seg_launches),
+                              occupancy_registration=p14[
+                                  "occupancy_registration"][
+                                  "min_dist_voxels"],
+                              replay_eval=p14["replay"]["min_dist_voxels"],
+                              unpadded_icc=p14["unpadded_icc"][
+                                  "min_dist_voxels"]),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -3820,6 +4475,9 @@ def run_phases(device, small, counts, native_build, fit_root):
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "slots_per_pair", "host_ms")}
             for case, row in timing["evaluation"].items()},
+        occupancy_shape={k: occ_timing[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "slots_per_pair", "host_ms")},
     ), dict(
         name="knn", route="cuda",
         source="morefusion_tpu_torch/csrc/knn.cu",
@@ -3830,7 +4488,9 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + fit_bf16_launches["nn_indices"]
                   + eval_launches["nn_indices"]
                   + textured_launches["nn_indices"]
-                  + posenet_launches["nn_indices"]),
+                  + posenet_launches["nn_indices"]
+                  + p14["replay"]["nn_indices"]
+                  + p14["align_pointclouds"]["nn_indices"]),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
@@ -3840,7 +4500,10 @@ def run_phases(device, small, counts, native_build, fit_root):
                               evaluation=eval_launches["nn_indices"],
                               evaluation_textured=textured_launches[
                                   "nn_indices"],
-                              posenet_fit=posenet_launches["nn_indices"]),
+                              posenet_fit=posenet_launches["nn_indices"],
+                              replay_eval=p14["replay"]["nn_indices"],
+                              align_pointclouds=p14["align_pointclouds"][
+                                  "nn_indices"]),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

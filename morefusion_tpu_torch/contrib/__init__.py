@@ -9,3 +9,7 @@ from .icp import ICPRegistration
 from .icp import gradient_icp
 from .icp import icp_point_to_point
 from .icp import icp_point_to_point_gated
+from .occupancy_mapping import MultiInstanceOccupancyMapping
+from .occupancy_mapping import SparseVoxelMap
+from .occupancy_registration import OccupancyRegistration
+from .occupancy_registration import register_occupancy

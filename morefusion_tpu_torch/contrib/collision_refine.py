@@ -335,9 +335,10 @@ def refine_collision(
 class IterativeCollisionCheck:
     """Host-side wrapper: pads per-object lists into the refiner's arrays.
 
-    The object axis is padded to a power of two; padded slots are masked out
-    of the loss. Objects with more than ``max_points`` points keep a
-    random subset (seeded by the object's slot).
+    With ``pad_objects`` (the default) the object axis is padded to a power
+    of two, and padded slots are masked out of the loss; without it the
+    arrays hold the objects alone. Objects with more than ``max_points``
+    points keep a random subset (seeded by the object's slot).
     """
 
     def __init__(
@@ -354,10 +355,11 @@ class IterativeCollisionCheck:
         sdf_offset: float = 0.0,
         max_points: Optional[int] = None,
         cross_mode: str = "resample",
+        pad_objects: bool = True,
         device="cuda",
     ):
         N = len(transforms)
-        Np = 1 << (N - 1).bit_length() if N > 0 else N
+        Np = 1 << (N - 1).bit_length() if pad_objects and N > 0 else N
         self._n = N
         self._device = torch.device(device)
         obj_mask = np.zeros((Np,), bool)

@@ -9,6 +9,8 @@ from .base import ConcatDataset
 from .base import DatasetBase
 from .base import ModelsBase
 from .base import VoxelGrid
+from .external_results import load_posecnn_mat
+from .external_results import load_results_json
 from .instance_segmentation import SyntheticInstanceSegmentationDataset
 from .instance_segmentation import frame_to_class_label
 from .instance_segmentation import frame_to_masks
@@ -17,6 +19,8 @@ from .packed import is_packed
 from .packed import pack_reindexed
 from .procedural import ProceduralModels
 from .rgbd_pose_estimation.base import RGBDPoseEstimationDatasetBase
+from .rgbd_pose_estimation.frame_directory import FrameDirectoryDataset
+from .rgbd_pose_estimation.frame_directory import save_frame
 from .rgbd_pose_estimation.reindex import rebuild_meta
 from .rgbd_pose_estimation.reindex import reindex
 from .rgbd_pose_estimation.reindexed import RGBDPoseEstimationDatasetReIndexed

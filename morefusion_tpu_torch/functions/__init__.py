@@ -7,6 +7,9 @@ from .knn import pairwise_sq_dist
 from .loss import average_distance
 from .loss import average_distance_both
 from .loss import densefusion_confidence_loss
+from .occupancy import occupancy_grid_1d
+from .occupancy import occupancy_grid_2d
+from .occupancy import occupancy_grid_3d
 from .tdf import pseudo_occupancy_voxelization
 from .tdf import truncated_distance_function
 from .transforms import compose_transform
@@ -16,3 +19,5 @@ from .transforms import transformation_matrix
 from .transforms import translation_matrix
 from .voxelization import average_voxelization_3d
 from .voxelization import interpolate_voxel_grid
+from .voxelization import interpolate_voxel_grid_sorted
+from .voxelization import max_voxelization_3d

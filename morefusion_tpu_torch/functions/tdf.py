@@ -4,11 +4,14 @@ Port of ``morefusion_tpu/functions/tdf.py``. The per-voxel nearest-point
 search is ``ops/min_dist.py`` (the CUDA kernel on the card, its plain
 version on the CPU); its gradient is the two segment sums of the JAX
 package's ``_min_dist_bwd``, done with ``index_add_``: the TPU kernel has no
-backward kernel either.
+backward kernel either. ``truncated_distance_function_scatter`` is the
+neighbourhood-bounded segment-min of the reference's kernel, kept as a
+cross-check as in JAX (stock ``scatter_reduce``, no kernel of its own).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -119,6 +122,68 @@ def truncated_distance_function(
     if return_payload:
         out += (torch.where(hit, payload, -1).reshape(out_shape),)
     return out
+
+
+def truncated_distance_function_scatter(
+    points: torch.Tensor,
+    *,
+    pitch,
+    origin,
+    dims,
+    truncation,
+    return_indices: bool = False,
+    ksize: Optional[int] = None,
+):
+    """The truncated distance of :func:`truncated_distance_function`, found
+    only within a ``ksize^3`` neighbourhood of each point's nearest voxel
+    (default ``ceil(truncation / pitch)``, made odd), as the reference's
+    kernel: ``points (P, 3)`` -> ``(X, Y, Z)``, and with ``return_indices``
+    the winner's index (-1 where none; the lowest point index on a tie).
+    Voxels beyond the neighbourhood read ``truncation``."""
+    dtype, device = points.dtype, points.device
+    X, Y, Z = (int(d) for d in dims)
+    n_voxels = X * Y * Z
+    P = points.shape[0]
+    pitch_t = torch.as_tensor(pitch, dtype=dtype, device=device)
+    trunc_t = torch.as_tensor(truncation, dtype=dtype, device=device)
+    if ksize is None:
+        ksize = int(math.ceil(float(truncation) / float(pitch)))
+    if ksize % 2 == 0:
+        ksize += 1
+    r = torch.arange(ksize, device=device) - ksize // 2
+    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                          dim=-1).reshape(-1, 3)  # (K, 3)
+    K = offsets.shape[0]
+
+    origin_t = torch.as_tensor(origin, dtype=dtype, device=device)
+    ip = (points - origin_t) / pitch_t
+    vox = torch.round(ip).to(torch.int64)[:, None, :] + offsets[None]
+    dims_t = torch.tensor([X, Y, Z], device=device)
+    in_bounds = ((vox >= 0) & (vox < dims_t)).all(dim=-1)
+    delta = ip[:, None, :] - vox.to(dtype)
+    dist = pitch_t * torch.sqrt(torch.sum(delta**2, dim=-1))  # (P, K)
+    valid = in_bounds & (dist < trunc_t)
+    lin = (vox[..., 0] * Y + vox[..., 1]) * Z + vox[..., 2]
+    seg = torch.where(valid, lin, n_voxels).reshape(-1)
+    dist_flat = torch.where(valid, dist, trunc_t).reshape(-1)
+    tdf = torch.full((n_voxels + 1,), float("inf"), dtype=dtype,
+                     device=device)
+    tdf = tdf.scatter_reduce(0, seg, dist_flat, "amin")[:-1]
+    tdf = torch.minimum(tdf, trunc_t).reshape(X, Y, Z)
+    if not return_indices:
+        return tdf
+
+    big = P * K
+    tdf_flat = tdf.detach().reshape(-1)
+    is_winner = (seg < n_voxels) & (
+        dist_flat.detach() <= tdf_flat[seg.clamp_max(n_voxels - 1)])
+    pairs = torch.arange(big, device=device)
+    winner = torch.full((n_voxels + 1,), big, dtype=torch.int64,
+                        device=device)
+    winner = winner.scatter_reduce(
+        0, seg, torch.where(is_winner, pairs, big), "amin")[:-1]
+    point_idx = torch.where(winner < big, winner // K, -1).to(torch.int32)
+    return tdf, point_idx.reshape(X, Y, Z)
 
 
 def pseudo_occupancy_voxelization(

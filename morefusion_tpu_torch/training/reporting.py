@@ -2,8 +2,7 @@
 
 Port of ``morefusion_tpu/training/reporting.py``: ``LogReport`` appends
 observation rows to ``log.json``; ``write_args`` stamps ``args.json`` with the git hash, the host name and
-the time. ``githash`` is an own copy of ``morefusion_tpu/utils/
-provenance.py::githash``.
+the time (``githash`` is ``utils/provenance.py``'s).
 """
 
 from __future__ import annotations
@@ -12,26 +11,10 @@ import datetime
 import json
 import os
 import socket
-import subprocess
 import tempfile
 from typing import Dict, Optional
 
-
-def githash(cwd: str = None) -> str:
-    """Current git commit hash (empty string outside a repo)."""
-    if cwd is None:
-        cwd = os.path.dirname(os.path.abspath(__file__))
-    try:
-        return (
-            subprocess.check_output(
-                ["git", "rev-parse", "HEAD"], cwd=cwd,
-                stderr=subprocess.DEVNULL,
-            )
-            .decode()
-            .strip()
-        )
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return ""
+from ..utils.provenance import githash
 
 
 def write_args(out_dir: str, args: Dict) -> None:

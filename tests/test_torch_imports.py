@@ -68,7 +68,14 @@ def test_port_sources_exist():
                    "models/posenet.py", "datasets/background_composite.py",
                    "datasets/instance_segmentation.py",
                    "cli/generate_data.py", "cli/train_segmentation.py",
-                   "cli/pretrain_backbone.py"):
+                   "cli/pretrain_backbone.py", "functions/occupancy.py",
+                   "contrib/occupancy_registration.py",
+                   "datasets/external_results.py",
+                   "datasets/rgbd_pose_estimation/frame_directory.py",
+                   "runtime/replay.py", "utils/provenance.py",
+                   "cli/align_occupancy_grids.py", "cli/replay_eval.py",
+                   "cli/align_pointclouds.py", "cli/rescore_results.py",
+                   "cli/stratify_results.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 
