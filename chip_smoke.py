@@ -6,8 +6,9 @@
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
 and ``knn.cu``) with ``nvcc`` and makes phase 11's and phase 13's data,
-then runs fourteen phases, each printing one JSON line (phase 13 four, then
-its total) with ``elapsed_s``, the seconds since the start:
+then runs fifteen phases, each printing one JSON line (phases 13 and 15
+one a step, then their total) with ``elapsed_s``, the seconds since the
+start:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -89,9 +90,9 @@ its total) with ``elapsed_s``, the seconds since the start:
    ``PIPE_POSE_ATOL``, the ICC problems equal and replayed for
    ``ICC_REPLAY_ITERATIONS`` on both, and for the pipeline's 30 within the
    CPU's own spread under a start jitter); one pass with ICP, its knn launches
-   counted; whether cv2, scipy and sklearn import; and the timed pass again
-   with the model in bf16 (``bench.py``'s default), its min_dist launches
-   counted;
+   counted; whether cv2, scipy, sklearn and imageio import; and the timed
+   pass again with the model in bf16 (``bench.py``'s default), its min_dist
+   launches counted;
 10. the segmenter at ``bench.py --segmenter``'s arguments (22 classes,
    widths 32-256, the boundary head, no depth) with seeded weights at
    240x320: UNet logits card against CPU within ``SEG_LOGIT_ATOL`` and the
@@ -155,8 +156,8 @@ its total) with ``elapsed_s``, the seconds since the start:
    with its step ms and knn launches; (c) ``cli.train_segmentation`` at
    ``bench.py --segmenter``'s widths with the boundary head (B = 8,
    240x320, ``--fg-weight 5``, 64 generator frames cached by forked
-   workers in ``MFTPU_SEG_CACHE``) for as many steps as fit
-   ``seg_seconds`` at the measured step rate, its loss card against CPU,
+   workers in ``MFTPU_SEG_CACHE``) for ``seg_steps`` steps, its step rate
+   (bare on the card, and the host's batch), its loss card against CPU,
    the held-out mIoU and detection rate beside the seeded start's on the
    same 16 val frames (training must raise the mIoU), then phase 10's
    components measurements on the trained segmenter's own maps and a
@@ -194,7 +195,28 @@ its total) with ``elapsed_s``, the seconds since the start:
    dump and phase 11's val set, ``cli.rescore_results`` on the val set's
    true poses and a perturbed copy, and ``cli.align_pointclouds`` at its
    defaults, counted, and run again with the knn kernel and its plain
-   version: ADDs identical.
+   version: ADDs identical;
+15. the robot side: (a) the ROS node through ``runtime.ros_adapter.main``
+   on stub ROS modules (``RosStubs``), with the committed occ checkpoint
+   and phase 13's trained segmenter, fed ``ROS_FRAMES`` frames of phase
+   9's scene as the camera sends them (uint16 mm depth, TF camera
+   poses), its pipeline with ``NODE_PIPELINE`` (as ``bench.py``; 1 vote
+   where no track spawns at 3, as phase 9): its
+   frames a second from callback to publish, its min_dist launches (30 a
+   refine), and every published pose equal bit for bit to a direct
+   ``process_frame`` of a second pipeline ``main`` builds the same way
+   (deterministic mode); (b) a pick episode: ``PickAndPlaceStateMachine``
+   (``ROBOT_MAX_PICKS`` picks at most) over ``CollisionAwareRobot`` with
+   ``ROBOT_TOOL`` and two scripted failed seals, each scan the node's
+   pipeline over the 7 views of ``scan_poses`` of a six-object generator
+   scene, rendered: outcomes, scans and their ms, ``plan_picks`` and
+   ``plan_motion`` calls and ms, the scanned poses' mean ADD, min_dist
+   launches; run again with min_dist's plain version, poses, plans,
+   waypoints and outcomes identical (deterministic mode); (c) ``cli.demo
+   --refine --log-dir``
+   with the occ checkpoint: the 240 x 960 PNG, ms, launches; (d) one node
+   callback inside ``utils.profiling.trace``: the Chrome trace holds the
+   min_dist kernel by name.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -213,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from unittest import mock
 
@@ -2226,7 +2249,8 @@ def phase_pipeline(device, small, counts, models, frames, frames_s,
     from morefusion_tpu_torch.contrib import IterativeCollisionCheck
     from morefusion_tpu_torch.runtime import ScenePipeline
 
-    imports = {name: importable(name) for name in ("cv2", "scipy", "sklearn")}
+    imports = {name: importable(name)
+               for name in ("cv2", "scipy", "sklearn", "imageio")}
     V = 32 if not small else 16
     model = pipeline_model(small, V)
     n_timed = 12 if not small else 2
@@ -3222,14 +3246,15 @@ SEG_OBJECTS = (4, 10)
 SEG_SEED = 0
 REST_FULL = dict(tex_frames=8, seg_frames=64, seg_val_frames=16,
                  seg_shape=(240, 320), seg_batch=8, seg_widths=SEG_WIDTHS,
-                 seg_seconds=50.0, seg_steps=None, pretrain_steps=60,
+                 seg_steps=600, pretrain_steps=60,
                  pretrain_width=64, pretrain_batch=32, pretrain_n_val=32)
 REST_SMALL = dict(tex_frames=2, seg_frames=4, seg_val_frames=2,
                   seg_shape=(120, 160), seg_batch=2, seg_widths=(8, 16),
-                  seg_seconds=None, seg_steps=3, pretrain_steps=4,
+                  seg_steps=3, pretrain_steps=4,
                   pretrain_width=8, pretrain_batch=8, pretrain_n_val=8)
-# the segmenter's steps: as many as fit seg_seconds at the measured rate
-SEG_MIN_STEPS, SEG_MAX_STEPS = 20, 3000
+# the segmenter's steps are fixed: fitted to 50 s, the count followed the
+# host's batch time (328 to 478 steps on one H100), and at 328 the segmenter
+# found no instance on phase 9's frame, so its pipeline refined nothing
 # train_segmentation.py's foreground weight (its recall lever): at the
 # plain mean (1.0) a run of a few hundred steps predicts background alone
 SEG_FG_WEIGHT = 5.0
@@ -3500,9 +3525,9 @@ def components_on_map(unet, rgb, device, reps, what):
 def phase_seg_train(device, small, counts, fit_root, data, models_bank,
                     frames, pose_model):
     """(c) ``cli.train_segmentation`` at ``bench.py --segmenter``'s widths
-    with the boundary head on the frames ``rest_data`` cached, for as many
-    steps as fit ``seg_seconds`` at the rate measured first (the bare step
-    on a batch on the card, and the host's time to make a batch); the
+    with the boundary head on the frames ``rest_data`` cached, for
+    ``seg_steps`` steps, with its rate measured first (the bare step on a
+    batch on the card, and the host's time to make a batch); the
     segmenter's loss card against CPU at B = 2; the held-out mIoU and
     detection rate of the trained segmenter beside the seeded start's on
     the same val frames (training must raise the mIoU); then phase 10's
@@ -3587,10 +3612,7 @@ def phase_seg_train(device, small, counts, fit_root, data, models_bank,
               f"{losses[1]}")
 
         # (c) the main path: the CLI
-        n_steps = cfg["seg_steps"] or int(np.clip(
-            cfg["seg_seconds"] * 1e3 / max(median(bare_ms),
-                                           host_batch_ms[-1]),
-            SEG_MIN_STEPS, SEG_MAX_STEPS))
+        n_steps = cfg["seg_steps"]
         t0 = time.perf_counter()
         (state, summary), lines = quiet(seg_cli.main,
                                         base + ["--steps", str(n_steps)])
@@ -4339,6 +4361,644 @@ def phase_replay_and_tools(device, small, counts, fit_root):
                 align_pointclouds=align_launches), occupancy
 
 
+# -------------------------------------------------------------- phase 15
+
+# the robot side (phase 15): the ROS node's frames (phase 9's three views
+# in turn, one more for the profiler), the pick episode's scene, scan and
+# robot
+ROS_FRAMES = 12
+ROBOT_SCENE_SEED = 4
+ROBOT_OBJECTS = 6
+ROBOT_SCAN_VIEWS = 7
+# JAX's planning-scene tests' tool: at the defaults (a 4 cm sphere, 1 cm
+# clearance) no grasp in a pile of six is reachable, in either package
+ROBOT_TOOL = dict(ee_radius=0.01, min_clearance=0.005)
+ROBOT_GRASP_RESULTS = (False, False)  # two failed seals: one re-scan
+# after a failed seal the robot stands inside the object it released and no
+# motion plans out of it (JAX's planner does the same): later picks would
+# only repeat re-scans
+ROBOT_MAX_PICKS = 2
+ROBOT_MATCH_M = 0.30  # a track is the same-class true object this near
+# the node's pipeline as bench.py and phases 9 and 10 run it: at main's
+# defaults the reference's size filter (a bbox of 40 x 40 px at least at
+# 240x320) drops every object of these scenes (~30 x 30 px), in JAX too
+NODE_PIPELINE = dict(size_filter=False)
+
+
+def tf_quaternion_matrix(rot):
+    """``tf.transformations.quaternion_matrix``: x, y, z, w."""
+    from morefusion_tpu_torch.geometry import quaternion_matrix_np
+
+    x, y, z, w = rot
+    return quaternion_matrix_np([w, x, y, z])
+
+
+def tf_of(T):
+    """(translation, x-y-z-w rotation) of a pose, as TF gives them."""
+    from morefusion_tpu_torch.geometry import quaternion_from_matrix
+
+    w, x, y, z = quaternion_from_matrix(T)
+    return tuple(T[:3, 3]), (x, y, z, w)
+
+
+@contextlib.contextmanager
+def modules_patched(mods):
+    """``mods`` in ``sys.modules`` for the block, these names only:
+    ``mock.patch.dict`` would also drop what the block imported, and cv2
+    does not import twice in a process."""
+    saved = {name: sys.modules.get(name) for name in mods}
+    sys.modules.update(mods)
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+class RosStubs:
+    """Stub ``rospy``, ``cv_bridge``, ``message_filters``, ``tf`` and
+    message modules, as ``tests/runtime_tests/test_ros_adapter.py``:
+    messages carry their arrays, TF gives each stamp's camera pose,
+    ``rospy.get_param`` reads ``params``, and ``rospy.spin`` calls
+    ``self.spin`` with the callback the node registered."""
+
+    def __init__(self, params, camera_poses):
+        self.params, self.camera_poses = params, camera_poses
+        self.published, self.callbacks = [], []
+        self.spin = None
+
+    def installed(self):
+        stubs = self
+        mods = {name: types.ModuleType(name) for name in (
+            "rospy", "cv_bridge", "message_filters", "tf",
+            "tf.transformations", "geometry_msgs", "geometry_msgs.msg",
+            "sensor_msgs", "sensor_msgs.msg")}
+        rospy = mods["rospy"]
+        rospy.Duration = lambda s: s
+        rospy.init_node = lambda name: None
+        rospy.get_param = lambda name, *default: stubs.params.get(
+            name, *default)
+        rospy.spin = lambda: stubs.spin(stubs.callbacks[-1])
+
+        class Publisher:
+            def __init__(self, topic, msg_type, queue_size=1):
+                pass
+
+            def publish(self, msg):
+                stubs.published.append(msg)
+
+        rospy.Publisher = Publisher
+
+        class CvBridge:
+            def imgmsg_to_cv2(self, msg, desired_encoding=None):
+                return msg.data
+
+        mods["cv_bridge"].CvBridge = CvBridge
+
+        class Synchronizer:
+            def __init__(self, subs, queue_size=5, slop=0.1):
+                pass
+
+            def registerCallback(self, cb):
+                stubs.callbacks.append(cb)
+
+        mods["message_filters"].Subscriber = lambda topic, msg_type: topic
+        mods["message_filters"].ApproximateTimeSynchronizer = Synchronizer
+
+        class TransformListener:
+            def __init__(self, cache_time=None):
+                pass
+
+            def lookupTransform(self, target, source, stamp):
+                return tf_of(stubs.camera_poses[stamp])
+
+        mods["tf"].TransformListener = TransformListener
+        mods["tf.transformations"].quaternion_matrix = tf_quaternion_matrix
+        mods["tf"].transformations = mods["tf.transformations"]
+
+        class Vec:
+            x = y = z = w = 0.0
+
+        class Pose:
+            def __init__(self):
+                self.position, self.orientation = Vec(), Vec()
+
+        class PoseArray:
+            def __init__(self):
+                self.header = types.SimpleNamespace(stamp=None, frame_id=None)
+                self.poses = []
+
+        mods["geometry_msgs.msg"].Pose = Pose
+        mods["geometry_msgs.msg"].PoseArray = PoseArray
+        mods["geometry_msgs"].msg = mods["geometry_msgs.msg"]
+        mods["sensor_msgs.msg"].CameraInfo = object
+        mods["sensor_msgs.msg"].Image = object
+        mods["sensor_msgs"].msg = mods["sensor_msgs.msg"]
+        return modules_patched(mods)
+
+
+def ros_messages(frame, stamp):
+    """A stream frame as the camera sends it: rgb8, depth in uint16
+    mm (0 where there is none), ``CameraInfo.K``."""
+    header = types.SimpleNamespace(frame_id="camera", stamp=stamp)
+    depth_mm = np.round(np.nan_to_num(frame["depth"], nan=0.0) * 1000.0)
+    return (types.SimpleNamespace(data=frame["rgb"].astype(np.uint8),
+                                  header=header),
+            types.SimpleNamespace(data=depth_mm.astype(np.uint16),
+                                  header=header),
+            types.SimpleNamespace(K=list(frame["K"].ravel()), header=header))
+
+
+def node_inputs(frame, stamp):
+    """What the node hands ``process_frame`` for these messages: mm to m
+    with 0 as NaN, K from ``CameraInfo``, the camera pose through TF."""
+    rgb_msg, depth_msg, info = ros_messages(frame, stamp)
+    depth = depth_msg.data.astype(np.float32) / 1000.0
+    depth[depth == 0] = np.nan
+    trans, rot = tf_of(frame["T_cam2world"])
+    T = tf_quaternion_matrix(rot)
+    T[:3, 3] = trans
+    return (rgb_msg.data.astype(np.float32), depth,
+            np.asarray(info.K, np.float64).reshape(3, 3), T)
+
+
+def published_rows(results):
+    """(n, 7) positions and w-x-y-z quaternions the node publishes for a
+    pipeline's results: the refined pose where there is one."""
+    from morefusion_tpu_torch.geometry import quaternion_from_matrix
+
+    rows = []
+    for res in results.values():
+        T = res.get("T_cad2world_refined", res.get("T_cad2world"))
+        rows.append(np.concatenate([T[:3, 3], quaternion_from_matrix(T)]))
+    return np.array(rows).reshape(-1, 7)
+
+
+def message_rows(msg):
+    return np.array([[p.position.x, p.position.y, p.position.z,
+                      p.orientation.w, p.orientation.x, p.orientation.y,
+                      p.orientation.z] for p in msg.poses]).reshape(-1, 7)
+
+
+@contextlib.contextmanager
+def tiny_pose_models(small):
+    """In the rehearsal, ``SingleView3D`` built by the ROS node's ``main``
+    is the tiny one (full width is for the card)."""
+    if not small:
+        yield
+        return
+    from morefusion_tpu_torch import models
+
+    full = models.SingleView3D
+
+    def tiny(n_fg_class, **kw):
+        with mock.patch.object(models, "SingleView3D", full):
+            return models.tiny_singleview3d(n_fg_class, **kw)
+
+    with mock.patch.object(models, "SingleView3D", tiny):
+        yield
+
+
+def profile_callback(callback, messages, root):
+    """(d) One node callback inside ``utils.profiling.trace``: the Chrome
+    trace's events, its kernels and the min_dist kernel's among them."""
+    import glob
+
+    from morefusion_tpu_torch.utils import profiling
+
+    logdir = os.path.join(root, "trace")
+    with profiling.trace(logdir):
+        with profiling.annotate("ros_callback"):
+            callback(*messages)
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    min_dist = [k for k in kernels if "min_dist" in k]
+    return dict(events=len(events), kernel_events=len(kernels),
+                min_dist_kernel_events=len(min_dist),
+                min_dist_kernels=sorted(set(min_dist)),
+                annotated=sum(e.get("name") == "ros_callback"
+                              for e in events))
+
+
+def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
+    """(a) The ROS node through ``runtime.ros_adapter.main`` on stub ROS
+    modules, fed ``ROS_FRAMES`` frames at ``main``'s 3 votes (again at 1
+    where no track spawns, as phase 9), in deterministic mode; a second
+    ``main`` builds the same pipeline, fed the same frames directly. (d)
+    one more callback of the first node under the profiler. Prints both
+    lines; returns the min_dist launches and the first node's pipeline."""
+    from morefusion_tpu_torch import runtime
+    from morefusion_tpu_torch.runtime import pipeline as pipeline_module
+    from morefusion_tpu_torch.runtime import ros_adapter
+
+    stream = [frames[k % len(frames)] for k in range(ROS_FRAMES + 1)]
+    stubs = RosStubs(
+        {"~log_dir": occ_run, "~segmentation_log_dir": seg_run,
+         "~device": device.type},
+        {float(k): f["T_cam2world"] for k, f in enumerate(stream)})
+    callback_ms, launches, direct, problems = [], {}, [], []
+
+    def feed(callback):
+        for c in counts:
+            c.launches = 0
+        for k, f in enumerate(stream[:ROS_FRAMES]):
+            messages = ros_messages(f, float(k))
+            sync(device)
+            t0 = time.perf_counter()
+            callback(*messages)
+            callback_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.update({c.__name__: c.launches for c in counts})
+
+    def process(callback):
+        pipe = callback.__self__._pipeline
+        for k, f in enumerate(stream[:ROS_FRAMES]):
+            direct.append(published_rows(
+                pipe.process_frame(*node_inputs(f, float(k)))))
+
+    def built_with(kw):
+        return mock.patch.object(runtime, "ScenePipeline", functools.partial(
+            runtime.ScenePipeline, **kw))
+
+    with stubs.installed(), tiny_pose_models(small):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            # main's 3 votes, or 1 where no track spawns (as phase 9)
+            for n_votes in (3, 1):
+                kw = dict(NODE_PIPELINE, n_votes=n_votes)
+                del callback_ms[:], problems[:], stubs.published[:]
+                with built_with(kw), record_icc(pipeline_module, problems):
+                    stubs.spin = feed
+                    t0 = time.perf_counter()
+                    ros_adapter.main()
+                    main_s = time.perf_counter() - t0
+                if problems or small:
+                    break
+            refines = len(problems)
+            node_callback = stubs.callbacks[-1]
+            published = list(stubs.published)
+            with built_with(kw):
+                stubs.spin = process
+                ros_adapter.main()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        with record_icc(pipeline_module, problems):
+            trace = profile_callback(
+                node_callback, ros_messages(stream[-1], float(ROS_FRAMES)),
+                root)
+        trace["refines"] = len(problems) - refines
+    same = [np.array_equal(message_rows(m), w)
+            for m, w in zip(published, direct)]
+    n_md = launches["min_dist_voxels"]
+    out = dict(frames=ROS_FRAMES, frame=list(frames[0]["depth"].shape),
+               objects=len(frames[0]["instance_to_class"]),
+               pipeline=kw, n_votes_note=None if kw["n_votes"] == 3 else
+               "no track spawned at main's n_votes=3 over these frames",
+               node_fps=ROS_FRAMES / (sum(callback_ms) / 1e3),
+               node_fps_after_first=(ROS_FRAMES - 1) / (
+                   sum(callback_ms[1:]) / 1e3),
+               callback_ms=callback_ms,
+               build_s=main_s - sum(callback_ms) / 1e3,
+               poses_published=[len(m.poses) for m in published],
+               refines=refines, launches=launches,
+               node_equals_direct_pipeline=all(same))
+    bad = []
+    if not len(published) == len(direct) == ROS_FRAMES:
+        bad.append(f"{len(published)} messages, {len(direct)} direct")
+    if not all(same):
+        bad.append("published poses differ from the direct pipeline's at "
+                   f"frames {[k for k, s in enumerate(same) if not s]}")
+    if device.type == "cuda":  # the rehearsal's segmenter finds little
+        if not sum(out["poses_published"]):
+            bad.append("no pose published")
+        if not refines:
+            bad.append("no ICC refine ran")
+        if n_md != 30 * refines:
+            bad.append(f"{n_md} min_dist launches for {refines} refines of "
+                       "30 iterations")
+    emit(dict(phase="robot_ros_node", ok=not bad, device=str(device), **out))
+    check(not bad, "ros node: " + "; ".join(bad))
+    bad = [] if trace["annotated"] else ["the annotated span is missing"]
+    if device.type == "cuda" and not any(
+            "min_dist_split_kernel" in k for k in trace["min_dist_kernels"]):
+        bad.append("no min_dist kernel in the trace")
+    emit(dict(phase="robot_profiler", ok=not bad, device=str(device),
+              **trace))
+    check(not bad, "profiler: " + "; ".join(bad))
+    return n_md, node_callback.__self__._pipeline
+
+
+def robot_scene(small):
+    """``ROBOT_OBJECTS`` objects of ``PlaneTypeSceneGeneration(RandomState(
+    ROBOT_SCENE_SEED))`` and their renders from ``scan_poses``' views; the
+    planning camera is the first view; the target, the object with the most
+    occluders under the true poses from it (the lowest id on a tie)."""
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.runtime import (
+        PickAndPlacePlanner,
+        build_occlusion_graph,
+    )
+    from morefusion_tpu_torch.simulation import PlaneTypeSceneGeneration
+
+    shape, n_points = ((240, 320), 20000) if not small else ((120, 160), 6000)
+    bank = ProceduralModels()
+    gen = PlaneTypeSceneGeneration(
+        bank, n_object=ROBOT_OBJECTS,
+        random_state=np.random.RandomState(ROBOT_SCENE_SEED))
+    gen.generate()
+    scan = PickAndPlacePlanner(bank).scan_poses(n=ROBOT_SCAN_VIEWS)
+    views = []
+    for T in scan:
+        f = gen.render_frame(T, shape=shape, n_points_per_object=n_points)
+        views.append(dict(
+            rgb=f["rgb"].astype(np.float32), depth=f["depth"],
+            K=f["intrinsic_matrix"], T_cam2world=f["T_cam2world"],
+            instance_label=f["instance_label"],
+            instance_to_class={int(i): int(f["class_ids"][k])
+                               for k, i in enumerate(f["instance_ids"])}))
+    truth = {int(i): dict(class_id=int(o["class_id"]),
+                          T_cad2world=o["T_cad2world"])
+             for i, o in gen.objects.items()}
+    ids = sorted(truth)
+    T_w2c = np.linalg.inv(scan[0])
+    occluded_by = build_occlusion_graph(
+        bank, [truth[i]["class_id"] for i in ids],
+        [T_w2c @ truth[i]["T_cad2world"] for i in ids], views[0]["K"], shape)
+    target = ids[max(range(len(ids)),
+                     key=lambda k: (len(occluded_by[k]), -k))]
+    down = np.diag([1.0, -1.0, -1.0, 1.0])  # the tool's z-axis down
+    places = {}
+    for k, i in enumerate(ids):
+        places[i] = down.copy()
+        places[i][:3, 3] = [0.45, -0.3 + 0.15 * k, 0.2]
+    home = down.copy()
+    home[:3, 3] = [0.0, 0.0, 0.5]
+    return dict(bank=bank, views=views, truth=truth, target=target,
+                occluders=sorted(ids[j] for j in
+                                 occluded_by[ids.index(target)]),
+                shape=shape, places=places, home=home)
+
+
+def scan_poses_of(pipe, scene, placed):
+    """A fresh perception pass: the pipeline (reset) over the scan's views
+    with their labels, refining as it goes; each track's last refined world
+    pose, keyed by the true instance it matches (the nearest same-class
+    object within ``ROBOT_MATCH_M``), without those already placed."""
+    pipe.reset()
+    refined = {}
+    for f in scene["views"]:
+        res = pipe.process_frame(
+            f["rgb"], f["depth"], f["K"], f["T_cam2world"],
+            instance_label=f["instance_label"],
+            instance_to_class=f["instance_to_class"], refine=True)
+        for i, r in res.items():
+            if "T_cad2world_refined" in r:
+                refined[i] = (r["class_id"], r["T_cad2world_refined"])
+    poses, dist = {}, {}
+    for class_id, T in refined.values():
+        near = [(float(np.linalg.norm(T[:3, 3] - o["T_cad2world"][:3, 3])),
+                 i) for i, o in scene["truth"].items()
+                if o["class_id"] == class_id]
+        d, gid = min(near, default=(np.inf, None))
+        if d < ROBOT_MATCH_M and gid not in placed and d < dist.get(
+                gid, np.inf):
+            poses[gid], dist[gid] = dict(class_id=class_id, T_cad2world=T), d
+    return poses
+
+
+def mean_add(poses, scene):
+    """Mean ADD (ADD-S for symmetric classes) of scanned poses against the
+    truth, over 500 CAD points an object."""
+    from morefusion_tpu_torch.datasets.ycb_video.class_names import (
+        class_ids_symmetric,
+    )
+    from morefusion_tpu_torch.metrics import average_distance
+
+    adds = []
+    for gid, p in sorted(poses.items()):
+        cad = scene["bank"].get_pcd(p["class_id"])[:500]
+        add, add_s = average_distance(
+            [cad], [scene["truth"][gid]["T_cad2world"]], [p["T_cad2world"]])
+        adds.append(float(add_s[0] if p["class_id"] in class_ids_symmetric
+                          else add[0]))
+    return float(np.mean(adds)) if adds else None
+
+
+def pick_episode(pipe, scene, device):
+    """(b) ``PickAndPlaceStateMachine`` over ``CollisionAwareRobot(
+    SimulatedRobotInterface(grasp_results=ROBOT_GRASP_RESULTS),
+    PlanningScene(bank, **ROBOT_TOOL))``, each scan a perception pass of
+    ``pipe`` on the card. Returns what it decided and what it took."""
+    from morefusion_tpu_torch.runtime import (
+        CollisionAwareRobot,
+        PickAndPlacePlanner,
+        PickAndPlaceStateMachine,
+        PlanningScene,
+        SimulatedRobotInterface,
+    )
+
+    bank = scene["bank"]
+    clock = HostClock()
+    planner = PickAndPlacePlanner(bank)
+    world = PlanningScene(bank, **ROBOT_TOOL)
+    world.plan_motion = clock.wrap("plan_motion", world.plan_motion)
+    inner = SimulatedRobotInterface(grasp_results=list(ROBOT_GRASP_RESULTS))
+    robot = CollisionAwareRobot(inner, world, T_home=scene["home"])
+    rec = dict(scans=[], scan_ms=[], add=[], plans=[])
+    machine = None
+
+    def provider():
+        placed = {o.instance_id for o in machine.outcomes
+                  if o.status != "skipped"}
+        sync(device)
+        t0 = time.perf_counter()
+        poses = scan_poses_of(pipe, scene, placed)
+        sync(device)
+        rec["scan_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["scans"].append(poses)
+        rec["add"].append(mean_add(poses, scene))
+        world.update_from_poses(poses)
+        return dict(poses=dict(poses), K=scene["views"][0]["K"],
+                    T_cam2world=scene["views"][0]["T_cam2world"],
+                    image_shape=scene["shape"], place_poses=scene["places"])
+
+    plan_picks = clock.wrap("plan_picks", planner.plan_picks)
+
+    def planned(*args, **kw):
+        rec["plans"].append(plan_picks(*args, **kw))
+        return rec["plans"][-1]
+
+    planner.plan_picks = planned
+    machine = PickAndPlaceStateMachine(
+        planner, robot, provider, target_instance=scene["target"],
+        max_picks=ROBOT_MAX_PICKS)
+    t0 = time.perf_counter()
+    rec["outcomes"] = [(o.instance_id, o.status, o.grasp_attempts,
+                        o.rescans) for o in machine.run()]
+    rec["s"] = time.perf_counter() - t0
+    rec["log"] = inner.log
+    rec["clock"] = clock
+    return rec
+
+
+def same_episode(got, want):
+    """Where two episodes differ: outcomes, scanned poses, plans, the
+    robot's commands (poses bit for bit)."""
+    bad = []
+    if got["outcomes"] != want["outcomes"]:
+        bad.append("outcomes")
+    if [sorted(s) for s in got["scans"]] != [sorted(s) for s in
+                                              want["scans"]] or any(
+            not np.array_equal(g[i]["T_cad2world"], w[i]["T_cad2world"])
+            for g, w in zip(got["scans"], want["scans"]) for i in g):
+        bad.append("scanned poses")
+    keys = ("instance_id", "class_id", "grasp_pose", "pre_grasp_pose",
+            "lift_pose", "place_pose")
+    if len(got["plans"]) != len(want["plans"]) or any(
+            len(g) != len(w) or any(
+                not np.array_equal(getattr(a, k), getattr(b, k))
+                for a, b in zip(g, w) for k in keys)
+            for g, w in zip(got["plans"], want["plans"])):
+        bad.append("plans")
+    if len(got["log"]) != len(want["log"]) or any(
+            g[0] != w[0] or (g[0] == "move_to" and not (
+                np.array_equal(g[1], w[1]) and g[2:] == w[2:]))
+            or (g[0] != "move_to" and g != w)
+            for g, w in zip(got["log"], want["log"])):
+        bad.append("waypoints")
+    return bad
+
+
+def phase_pick_episode(device, small, counts, pipe):
+    """(b) The pick episode with the kernels, counted and timed, then again
+    with min_dist's plain version; both in deterministic mode. Prints its
+    line; returns the min_dist launches."""
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    t0 = time.perf_counter()
+    scene = robot_scene(small)
+    scene_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for c in counts:
+            c.launches = 0
+        got = pick_episode(pipe, scene, device)
+        launches = {c.__name__: c.launches for c in counts}
+        with mock.patch.object(md, "min_dist_voxels",
+                               md.min_dist_voxels_plain):
+            want = pick_episode(pipe, scene, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = same_episode(got, want)
+    outcomes = got["outcomes"]
+    target = scene["target"]
+    clock = got["clock"]
+    out = dict(objects=ROBOT_OBJECTS, seed=ROBOT_SCENE_SEED,
+               frame=list(scene["shape"]), scan_views=ROBOT_SCAN_VIEWS,
+               tool=ROBOT_TOOL, grasp_results=list(ROBOT_GRASP_RESULTS),
+               max_picks=ROBOT_MAX_PICKS, target=target,
+               target_occluders=scene["occluders"],
+               outcomes=[dict(zip(("instance", "status", "grasp_attempts",
+                                   "rescans"), o)) for o in outcomes],
+               target_reached=any(o[0] == target and o[1] != "skipped"
+                                  for o in outcomes),
+               picks_until_target=next(
+                   (k + 1 for k, o in enumerate(outcomes)
+                    if o[0] == target), None),
+               scans=len(got["scans"]), scan_ms=got["scan_ms"],
+               scanned_objects=[len(s) for s in got["scans"]],
+               mean_add_m=got["add"],
+               plan_picks=dict(calls=clock.calls.get("plan_picks", 0),
+                               ms=clock.ms.get("plan_picks", 0.0)),
+               plan_motion=dict(calls=clock.calls.get("plan_motion", 0),
+                                ms=clock.ms.get("plan_motion", 0.0)),
+               robot_commands=len(got["log"]), episode_s=got["s"],
+               plain_episode_s=want["s"], scene_s=scene_s,
+               launches=launches,
+               kernel_vs_plain="identical" if not bad else bad)
+    bad = [f"with min_dist's plain version the {b} differ" for b in bad]
+    if device.type == "cuda":  # the rehearsal's random model maps little
+        if len(got["scans"]) < 2:
+            bad.append("the re-scan never ran")
+        if not launches["min_dist_voxels"]:
+            bad.append("the min_dist kernel was never launched")
+    emit(dict(phase="robot_pick_episode", ok=not bad, device=str(device),
+              **out))
+    check(not bad, "pick episode: " + "; ".join(bad))
+    return launches["min_dist_voxels"]
+
+
+def phase_demo(device, small, counts, occ_run, root):
+    """(c) ``cli.demo --refine --log-dir <occ run>`` at its defaults (the
+    tiny model in the rehearsal): the PNG, its panes, ms, launches. Prints
+    its line; returns the min_dist launches."""
+    import cv2
+
+    from morefusion_tpu_torch.cli import demo
+    from morefusion_tpu_torch.extra import viz
+
+    path = os.path.join(root, "demo.png")
+    argv = ["--refine", "--log-dir", occ_run, "--out", path, "--device",
+            device.type] + (["--tiny"] if small else [])
+    for c in counts:
+        c.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    results, lines = quiet(demo.main, argv)
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counts}
+    check(os.path.isfile(path), "demo: no PNG written")
+    panel = cv2.imread(path, cv2.IMREAD_UNCHANGED)[..., ::-1]
+    W = panel.shape[1] // 3
+    out = dict(ms=ms, poses=len(results), png_shape=list(panel.shape),
+               image_writer=viz.image_writer(),
+               overlay_pixels_changed=int(
+                   (panel[:, 2 * W:] != panel[:, :W]).any(axis=2).sum()),
+               launches=launches, refined=sum(
+                   "T_cad2world_refined" in r for r in results.values()),
+               printed=lines)
+    bad = [] if panel.shape == (240, 960, 3) else [
+        f"a PNG of {panel.shape}"]
+    if not out["overlay_pixels_changed"]:
+        bad.append("the overlay pane equals the input")
+    emit(dict(phase="robot_demo", ok=not bad, device=str(device), **out))
+    check(not bad, "demo: " + "; ".join(bad))
+    return launches["min_dist_voxels"]
+
+
+def phase_robot(device, small, counts, fit_root, frames):
+    """Phase 15: the robot side, (a) to (d); returns each path's min_dist
+    launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = os.path.join(fit_root, "robot")
+    os.makedirs(root)
+    occ_run = os.path.join(eval_runs(root, small, names=("occ",)), "occ")
+    seg_run = os.path.join(rest_root(fit_root), "segmenter")
+    seconds = {}
+    t = time.perf_counter()
+    node_md, pipe = phase_ros_node(device, small, counts, frames, occ_run,
+                                   seg_run, root)
+    seconds["ros_node"] = time.perf_counter() - t
+    t = time.perf_counter()
+    episode_md = phase_pick_episode(device, small, counts, pipe)
+    seconds["pick_episode"] = time.perf_counter() - t
+    del pipe
+    t = time.perf_counter()
+    demo_md = phase_demo(device, small, counts, occ_run, root)
+    seconds["demo"] = time.perf_counter() - t
+    shutil.rmtree(root)
+    seconds["total"] = time.perf_counter() - t0
+    emit(dict(phase="robot", ok=True, device=str(device), seconds=seconds))
+    return dict(ros_node=node_md, pick_episode=episode_md, demo=demo_md)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4427,6 +5087,7 @@ def run_phases(device, small, counts, native_build, fit_root):
         device, small, counts, fit_root, rest_data_info, setup,
         scene_models, frames, model16)
     p14, occupancy = phase_replay_and_tools(device, small, counts, fit_root)
+    p15 = phase_robot(device, small, counts, fit_root, frames)
     # the first shape is align_occupancy_grids' (its defaults)
     occ_timing = next(iter(occupancy["grids"].values()))
 
@@ -4443,7 +5104,8 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + posenet_launches["min_dist_voxels"]
                   + trained_seg_launches
                   + sum(p14[k]["min_dist_voxels"] for k in (
-                      "occupancy_registration", "replay", "unpadded_icc"))),
+                      "occupancy_registration", "replay", "unpadded_icc"))
+                  + sum(p15.values())),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -4462,7 +5124,10 @@ def run_phases(device, small, counts, native_build, fit_root):
                                   "min_dist_voxels"],
                               replay_eval=p14["replay"]["min_dist_voxels"],
                               unpadded_icc=p14["unpadded_icc"][
-                                  "min_dist_voxels"]),
+                                  "min_dist_voxels"],
+                              ros_node=p15["ros_node"],
+                              pick_episode=p15["pick_episode"],
+                              demo=p15["demo"]),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
