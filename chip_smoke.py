@@ -5,10 +5,10 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc`` and makes phase 11's and phase 13's data,
-then runs fifteen phases, each printing one JSON line (phases 13 and 15
-one a step, then their total) with ``elapsed_s``, the seconds since the
-start:
+and ``knn.cu``) with ``nvcc`` and makes phase 11's, phase 13's and phase
+16's data, then runs sixteen phases, each printing one JSON line (phases 13
+and 15 one a step, then their total) with ``elapsed_s``, the seconds since
+the start:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -216,10 +216,37 @@ start:
    --refine --log-dir``
    with the occ checkpoint: the 240 x 960 PNG, ms, launches; (d) one node
    callback inside ``utils.profiling.trace``: the Chrome trace holds the
-   min_dist kernel by name.
+   min_dist kernel by name;
+16. the data side: (a) a YCB-Video tree written before anything runs on
+   the card (``ycb_data``): ``YCB_Video_Models`` with each class's
+   procedural solid grid as a box mesh (``voxel_grid_to_mesh``) and its
+   ``points.xyz``, and ``YCB_Video_Dataset`` frames of the port's generator
+   at 480x640 (cv2 PNGs: class-id labels, uint16 depth at
+   ``factor_depth`` 10000; ``scipy.io.savemat`` meta), of which only the
+   frames the loader reads are written (every ``YCB_SAMPLING``-th train
+   id), with the keyframes and ``data_syn``; the factory's examples
+   (train + syn through ``ConcatDataset``, and val) reindexed in forked
+   workers and packed; (b) ``YCBVideoModels`` on the tree: the host
+   seconds of its first build of all 21 classes (meshio's voxelization and
+   EDT, npz caches written) and of the cached second, each class's solid
+   grid against the procedural model's own (IoU at least
+   ``YCB_IOU_MIN``), ``compute_voxel_size --ycb-video`` beside the
+   procedural table; (c) ``training.loop.fit`` with
+   ``models_bank=YCBVideoModels`` from the occ checkpoint at full width in
+   fp32 (``add/add_s+occupancy``, B = 16, three steps, one evaluation),
+   counted (both kernels launched), the bank's bare step timed as phase 6
+   times its own, one step with the kernels against the plain versions in
+   deterministic mode (phase 11's tolerances); (d) ``cli.profile_train``
+   and ``cli.profile_backward`` at their defaults (B = 16, 20 and 15
+   steps): each stage's and variant's ms, the FLOP counter's TFLOP/s and
+   the launches of each variant (C and D none of knn); (e) ``geometry.nn``
+   on the card against its plain version (indices identical),
+   ``cli.visualize_data``, ``cli.ambiguity_floor`` at ``--n-rotations
+   500`` and ``cli.export_checkpoint`` on phase 11's run A (the archive
+   equal to ``save_best``'s), each timed once.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
-last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+Then the script's seconds, a ``{"kernels": [...]}`` line, the card's name
+and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero; it also does so, printing no result, when there is
 no CUDA device. fp32 except the bf16 passes, with TF32 off for
 convolutions and matrix products; bf16 runs on PyTorch's defaults, as a
@@ -4999,6 +5026,484 @@ def phase_robot(device, small, counts, fit_root, frames):
     return dict(ros_node=node_md, pick_episode=episode_md, demo=demo_md)
 
 
+# -------------------------------------------------------------- phase 16
+
+# the data side (phase 16): a YCB-Video tree written from the port's
+# generator (3-6 objects a frame; 480x640, the dataset's size), read by
+# the YCB loader: every YCB_SAMPLING-th train frame, every keyframe and
+# every data_syn frame. The counts give fit >= 3 train batches of 16
+# after the visibility filter (train + syn) and one val batch of 48
+YCB_SEED = 16
+YCB_OBJECTS = (3, 6)
+YCB_SAMPLING = 8
+YCB_FULL = dict(shape=(480, 640), train_frames=24, syn_frames=8,
+                val_frames=16, batch=16, val_batch=48, steps=3)
+YCB_SMALL = dict(shape=(120, 160), train_frames=3, syn_frames=2,
+                 val_frames=2, batch=4, val_batch=4, steps=2)
+YCB_FACTOR_DEPTH = 10000.0
+YCB_N_ROTATIONS = 500  # ambiguity_floor's sweep
+# the IoU of each class's meshio solid grid against the procedural model's
+# own solid voxels, on the procedural grid; a mesh written or voxelized
+# wrongly falls far below
+YCB_IOU_MIN = 0.5
+YCB_BARE_STEPS = 5
+
+
+def ycb_root(fit_root):
+    """The data root: ``ycb_video/YCB_Video_{Models,Dataset}`` below it."""
+    return os.path.join(fit_root, "ycb")
+
+
+def _ycb_frame(task):
+    """Write one generator frame as YCB-Video's files (cv2, savemat); a
+    class's second instance stays background, as YCB-Video labels one
+    instance a class. Returns the labelled classes."""
+    import cv2
+    import scipy.io
+
+    from morefusion_tpu_torch import datasets
+
+    base, split, index, shape = task
+    frame = datasets.SyntheticRGBDPoseEstimationDataset(
+        split=split, n_frames=index + 1, n_objects=YCB_OBJECTS,
+        seed=YCB_SEED, image_shape=shape).get_frame(index)
+    label = np.zeros(shape, np.uint8)
+    cls, poses = [], []
+    for iid, cid, T in zip(frame["instance_ids"], frame["class_ids"],
+                           frame["Ts_cad2cam"]):
+        if cid in cls:
+            continue
+        label[frame["instance_label"] == iid] = cid
+        cls.append(int(cid))
+        poses.append(T[:3, :4])
+    depth = np.nan_to_num(frame["depth"] * YCB_FACTOR_DEPTH).round()
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    for name, image in (("color", frame["rgb"][..., ::-1]),
+                        ("depth", depth.astype(np.uint16)),
+                        ("label", label)):
+        check(cv2.imwrite(f"{base}-{name}.png", np.ascontiguousarray(image)),
+              f"ycb: cv2 could not write {base}-{name}.png")
+    scipy.io.savemat(base + "-meta.mat", {
+        "cls_indexes": np.asarray(cls, np.int32),
+        "factor_depth": YCB_FACTOR_DEPTH,
+        "intrinsic_matrix": frame["intrinsic_matrix"],
+        "poses": np.stack(poses, axis=2)})
+    return cls
+
+
+def ycb_models_tree(models_dir):
+    """``YCB_Video_Models``: each class's procedural solid grid as a box
+    mesh (``voxel_grid_to_mesh``, each voxel's box centred on its point)
+    in ``textured_simple.obj``, its surface samples in ``points.xyz``."""
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.datasets.ycb_video import class_names
+    from morefusion_tpu_torch.extra import viz
+
+    bank = ProceduralModels()
+    faces = {}
+    for cid in range(1, 22):
+        d = os.path.join(models_dir, str(class_names[cid]))
+        os.makedirs(d)
+        grid = bank.get_solid_voxel_grid(cid)
+        idx = np.round((grid.points - grid.origin) / grid.pitch).astype(int)
+        occ = np.zeros(idx.max(axis=0) + 1, bool)
+        occ[tuple(idx.T)] = True
+        v, f = viz.voxel_grid_to_mesh(occ, grid.pitch,
+                                      np.asarray(grid.origin) - grid.pitch / 2)
+        viz.save_obj(os.path.join(d, "textured_simple.obj"), v, f)
+        np.savetxt(os.path.join(d, "points.xyz"), bank.get_pcd(cid))
+        faces[cid] = len(f)
+    return faces
+
+
+def ycb_data(fit_root, small):
+    """Phase 16's data, made before anything runs on the card: the
+    YCB-Video tree (the models, then the frames in forked workers: only
+    the train frames the loader reads, each ``YCB_SAMPLING``-th, the
+    keyframes and data_syn), then the factory's examples (``reindex`` in
+    forked workers, the procedural bank rendering the visibility; see
+    ``phase_data_side``) packed. Fails when fit would see fewer than
+    ``FIT_MIN_TRAIN_BATCHES`` train batches or no val batch."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    from morefusion_tpu_torch import datasets
+
+    cfg = YCB_SMALL if small else YCB_FULL
+    t0 = time.perf_counter()
+    top = os.path.join(ycb_root(fit_root), "ycb_video")
+    faces = ycb_models_tree(os.path.join(top, "YCB_Video_Models"))
+    models_s = time.perf_counter() - t0
+    data = os.path.join(top, "YCB_Video_Dataset")
+    n_train = cfg["train_frames"] * YCB_SAMPLING
+    train_ids = [f"0001/{k + 1:06d}" for k in range(n_train)]
+    val_ids = [f"0002/{k + 1:06d}" for k in range(cfg["val_frames"])]
+    tasks = [(os.path.join(data, "data", train_ids[k]), "train", k,
+              cfg["shape"]) for k in range(0, n_train, YCB_SAMPLING)]
+    tasks += [(os.path.join(data, "data", id_), "val", k, cfg["shape"])
+              for k, id_ in enumerate(val_ids)]
+    tasks += [(os.path.join(data, "data_syn", f"{k:06d}"), "train",
+               n_train + k, cfg["shape"]) for k in range(cfg["syn_frames"])]
+    os.makedirs(os.path.join(data, "image_sets"))
+    for split, ids in (("train", train_ids), ("keyframe", val_ids)):
+        with open(os.path.join(data, "image_sets", f"{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids) + "\n")
+    n_workers = min(os.cpu_count() or 1, 4 if small else 16)
+    with ProcessPoolExecutor(
+            max_workers=n_workers,
+            mp_context=multiprocessing.get_context("fork")) as ex:
+        labelled = list(ex.map(_ycb_frame, tasks))
+    frames_s = time.perf_counter() - t0 - models_s
+
+    def factory(split):
+        return datasets.YCBVideoRGBDPoseEstimationDataset(
+            split, models=datasets.ProceduralModels(),
+            sampling=YCB_SAMPLING, root_dir=data)
+
+    t1 = time.perf_counter()
+    sources = dict(train=datasets.ConcatDataset(factory("train"),
+                                                factory("syn")),
+                   val=factory("val"))
+    read = {k: len(v) for k, v in sources.items()}
+    for split, src in sources.items():
+        reindexed = os.path.join(ycb_root(fit_root), f"{split}_reindexed")
+        datasets.reindex(reindexed, [src], n_workers=n_workers,
+                         progress=False)
+        datasets.pack_reindexed(reindexed,
+                                os.path.join(ycb_root(fit_root), split),
+                                progress=False)
+    train = datasets.PackedPoseDataset(
+        os.path.join(ycb_root(fit_root), "train"),
+        min_visibility=FIT_MIN_VISIBILITY)
+    val = datasets.PackedPoseDataset(os.path.join(ycb_root(fit_root), "val"))
+    out = dict(shape=cfg["shape"], n_objects=YCB_OBJECTS,
+               sampling=YCB_SAMPLING, n_workers=n_workers,
+               image_set_train=n_train, frames_written=len(tasks),
+               frames_read=read, mesh_faces=faces,
+               labelled_objects=int(sum(map(len, labelled))),
+               train_crops=len(train), val_crops=len(val),
+               train_crops_all=len(datasets.PackedPoseDataset(
+                   os.path.join(ycb_root(fit_root), "train"))),
+               models_s=models_s, frames_s=frames_s,
+               reindex_s=time.perf_counter() - t1,
+               data_s=time.perf_counter() - t0)
+    check(len(train) >= FIT_MIN_TRAIN_BATCHES * cfg["batch"],
+          f"ycb data: {len(train)} train crops at visibility >= "
+          f"{FIT_MIN_VISIBILITY}, fewer than {FIT_MIN_TRAIN_BATCHES} "
+          f"batches of {cfg['batch']}")
+    check(len(val) >= cfg["val_batch"],
+          f"ycb data: {len(val)} val crops, no batch of {cfg['val_batch']}")
+    return out
+
+
+def solid_iou(got, want):
+    """IoU of two solid grids' points on ``want``'s voxel grid."""
+    def cells(grid):
+        idx = np.round((grid.points - want.origin) / want.pitch)
+        return set(map(tuple, idx.astype(int)))
+
+    a, b = cells(got), cells(want)
+    return len(a & b) / max(len(a | b), 1)
+
+
+def phase_ycb_bank(root):
+    """(b) ``YCBVideoModels`` on the tree: the first build (meshio's
+    voxelization and EDT, npz caches written) and the cached second, each
+    class's grid against the procedural model's own, and
+    ``compute_voxel_size``'s tables."""
+    from morefusion_tpu_torch.cli import compute_voxel_size
+    from morefusion_tpu_torch.datasets import ProceduralModels, YCBVideoModels
+
+    models_dir = os.path.join(root, "ycb_video", "YCB_Video_Models")
+    builds = []
+    for _ in range(2):
+        bank = YCBVideoModels(models_dir)
+        t0 = time.perf_counter()
+        grids = [bank.get_solid_voxel_grid(cid) for cid in range(1, 22)]
+        builds.append(time.perf_counter() - t0)
+    cached = sum(os.path.exists(os.path.join(
+        models_dir, str(bank.class_names[cid]), "solid_voxels.npz"))
+        for cid in range(1, 22))
+    check(cached == 21, f"ycb bank: {cached} npz caches of 21")
+    procedural = ProceduralModels()
+    iou = {}
+    for cid, grid in enumerate(grids, 1):
+        iou[int(cid)] = solid_iou(grid, procedural.get_solid_voxel_grid(cid))
+    check(min(iou.values()) >= YCB_IOU_MIN,
+          f"ycb bank: solid grid IoU below {YCB_IOU_MIN}: {iou}")
+    with mock.patch.dict(os.environ, {"MOREFUSION_TPU_DATA": root}):
+        ycb_rows = quiet(compute_voxel_size.main, ["--ycb-video"])[0]
+    procedural_rows = quiet(compute_voxel_size.main, [])[0]
+    table = {r["name"]: dict(ycb_bbox_diagonal=r["bbox_diagonal"],
+                             ycb_voxel_size=r["voxel_size"],
+                             procedural_bbox_diagonal=p["bbox_diagonal"],
+                             procedural_voxel_size=p["voxel_size"])
+             for r, p in zip(ycb_rows, procedural_rows)}
+    return dict(first_build_s=builds[0], cached_build_s=builds[1],
+                solid_points={int(c): len(g.points)
+                              for c, g in enumerate(grids, 1)},
+                iou=iou, iou_min=min(iou.values()),
+                iou_tolerance=YCB_IOU_MIN, voxel_size_table=table)
+
+
+def phase_ycb_fit(device, small, counts, root):
+    """(c) ``fit`` on the packed YCB sets with the YCB bank (the occ
+    checkpoint at full width, fp32, ``add/add_s+occupancy``, B = 16, three
+    steps, one evaluation), counted; the bank's bare train step timed as
+    phase 6 times its own; one step with the kernels against the plain
+    versions in deterministic mode."""
+    from morefusion_tpu_torch import datasets, models
+    from morefusion_tpu_torch.datasets import Transform, YCBVideoModels
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.training import BatchLoader, loop, trainer
+
+    cfg = YCB_SMALL if small else YCB_FULL
+    bank_dir = os.path.join(root, "ycb_video", "YCB_Video_Models")
+    train = datasets.PackedPoseDataset(
+        os.path.join(root, "train"), split="train", augmentation=True,
+        min_visibility=FIT_MIN_VISIBILITY)
+    val = datasets.PackedPoseDataset(os.path.join(root, "val"), split="val")
+    torch.manual_seed(0)
+    if small:
+        model = models.tiny_singleview3d(21, n_point=64, with_occupancy=True)
+    else:
+        model = models.SingleView3D(n_fg_class=21, with_occupancy=True)
+    spe = len(train) // cfg["batch"]
+    out_dir = os.path.join(root, "fit")
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    kw = dict(model=model, models_bank=YCBVideoModels(bank_dir),
+              train_dataset=train, val_dataset=val, out_dir=out_dir,
+              transform_train=Transform(train=True, with_occupancy=True),
+            transform_val=Transform(train=False, with_occupancy=True),
+            n_fg_class=21, batch_size=cfg["batch"],
+            loss="add/add_s+occupancy", max_steps=cfg["steps"],
+            eval_interval=(cfg["steps"] + 0.5) / spe, log_interval=1,
+              pretrained_model=None if small else CHECKPOINT,
+              device_augment=True, val_batch_size=cfg["val_batch"],
+              device=device)
+    state, summary = quiet(lambda: loop.fit(**kw))[0]
+    fit_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counts}
+    fit_steps = state.step
+    check(fit_steps == cfg["steps"], f"ycb fit: ended at {fit_steps}")
+    log = read_json(os.path.join(out_dir, "log.json"))
+    rows = [r for r in log if "main/loss" in r]
+    check(len(rows) == cfg["steps"]
+          and all(np.isfinite(r["main/loss"]) and r["main/loss_occupancy"]
+                  != 0 for r in rows), f"ycb fit: rows {log}")
+    auc = summary.get("main/add_or_add_s/auc")
+    check(auc is not None and np.isfinite(auc), f"ycb fit: summary {summary}")
+    if device.type == "cuda":
+        for k in ("nn_indices", "min_dist_voxels"):
+            check(launches[k] > 0, f"ycb fit: no {k} launch")
+
+    # the bank's bare step on one host batch, as phase 6 times its own
+    bank = trainer.CadPointBank.build(YCBVideoModels(bank_dir), 21,
+                                      device=device)
+    batches = iter(BatchLoader(train, cfg["batch"],
+                               Transform(train=True, with_occupancy=True),
+                               shuffle=False))
+    batch = next(batches)
+    batches.close()
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    step = trainer.make_train_step(state.model, bank,
+                                   occupancy_loss_term=True, augment=True)
+    step_ms = []
+    for i in range(YCB_BARE_STEPS + 1):
+        sync(device)
+        t = time.perf_counter()
+        float(step(state, batch, True, seed=0)[1]["loss"])
+        if i:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+
+    # kernels against plain versions, deterministic mode
+    loss_fn = trainer.make_loss_fn(state.model, bank, occupancy_loss_term=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            kernel = loss_and_grads(state.model, loss_fn, batch, train=True)
+            with mock.patch.object(md, "min_dist_voxels",
+                                   md.min_dist_voxels_plain), \
+                    mock.patch.object(knn, "nn_indices",
+                                      knn.nn_indices_plain):
+                plain = loss_and_grads(state.model, loss_fn, batch,
+                                       train=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    vs_plain = compare_steps(kernel, plain, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                             STEP_GRAD_TOTAL, "ycb step kernel vs plain")
+    return dict(
+        model="tiny" if small else "SingleView3D occ checkpoint, fp32",
+        batch=cfg["batch"], steps=fit_steps, steps_per_epoch=spe,
+        fit_s=fit_s, losses=[r["main/loss"] for r in rows],
+        loop_step_ms=[1e3 / r["main/sps_window"] for r in rows],
+        auc=auc, bare_step_ms=step_ms,
+        median_bare_step_ms=median(step_ms),
+        solid_points_in_bank=int(bank.solid_mask.sum()),
+        kernel_vs_plain=vs_plain,
+        tolerance=dict(loss_rtol=STEP_LOSS_RTOL, grad_rtol=STEP_GRAD_RTOL,
+                       grad_of_whole=STEP_GRAD_TOTAL),
+        launches=launches), launches
+
+
+def phase_profile_clis(device, small, counts, root):
+    """(d) ``profile_train`` and ``profile_backward`` at their defaults
+    (B = 16, 20 and 15 steps), each counted; C and D run no knn."""
+    from morefusion_tpu_torch.cli import profile_backward, profile_train
+
+    tiny = (["--tiny", "--batch-size", "2", "--steps", "1",
+             "--image-size", "64"] if small else [])
+    argv = tiny + ["--device", device.type]
+    out, launches = {}, {}
+    for c in counts:
+        c.launches = 0
+    trace = os.path.join(root, "trace")
+    res, lines = quiet(profile_train.main, argv + ["--trace-dir", trace])
+    launches["profile_train"] = {c.__name__: c.launches for c in counts}
+    check(res["step_flops"] > 0 and os.listdir(trace),
+          f"profile_train: {lines[-3:]}")
+    out["profile_train"] = dict(
+        ms={k: v["ms"] for k, v in res["results"].items()},
+        host_ms={k: v["host_ms"] for k, v in res["results"].items()},
+        first_call_s=res["first_call_s"], step_flops=res["step_flops"],
+        flop_counter_tflops_per_s=res["tflops_per_s"], card=res["card"],
+        launches=launches["profile_train"])
+    for c in counts:
+        c.launches = 0
+    rows, lines = quiet(profile_backward.main, argv)
+    launches["profile_backward"] = {c.__name__: c.launches for c in counts}
+    check(list(rows) == list("ABCDEFGH"), f"profile_backward: {lines}")
+    if device.type == "cuda":
+        for key, row in rows.items():
+            want_knn = 0 if key in "CD" else row["launches"]["steps"]
+            check(row["launches"]["nn_indices"] == want_knn
+                  and row["launches"]["min_dist_voxels"]
+                  == row["launches"]["steps"],
+                  f"profile_backward {key}: launches {row['launches']}")
+        for k in ("nn_indices", "min_dist_voxels"):  # + first calls, FLOPs
+            check(launches["profile_backward"][k]
+                  >= sum(r["launches"][k] for r in rows.values()),
+                  f"profile_backward: {k} launches {launches}")
+    out["profile_backward"] = dict(
+        variants={k: dict(name=r["name"], ms=r["ms"], host_ms=r["host_ms"],
+                          flops=r["flops"], launches=r["launches"])
+                  for k, r in rows.items()},
+        attribution=[ln for ln in lines if ":" in ln and "ms/step" not in ln],
+        launches=launches["profile_backward"])
+    return out, launches
+
+
+def phase_data_tools(device, small, counts, fit_root, root):
+    """(e) ``geometry.nn`` on the card against its plain version,
+    ``visualize_data``, ``ambiguity_floor`` and ``export_checkpoint`` on
+    phase 11's run A, each timed once."""
+    from morefusion_tpu_torch import geometry
+    from morefusion_tpu_torch.cli import (
+        ambiguity_floor,
+        export_checkpoint,
+        visualize_data,
+    )
+    from morefusion_tpu_torch.datasets import YCBVideoModels
+    from morefusion_tpu_torch.ops import knn
+
+    out = {}
+    bank = YCBVideoModels(os.path.join(root, "ycb_video", "YCB_Video_Models"))
+    g = np.random.RandomState(16)
+    ref = np.stack([bank.get_pcd(cid)[:500] for cid in range(1, 17)])
+    query = np.stack([r[g.randint(0, len(r), 20000)] for r in ref])
+    query = (query + g.normal(0, 0.003, query.shape)).astype(np.float32)
+    ref_t = torch.from_numpy(ref).to(device)
+    query_t = torch.from_numpy(query).to(device)
+    for c in counts:
+        c.launches = 0
+    t0 = time.perf_counter()
+    idx = geometry.nn(ref_t, query_t).cpu()
+    nn_s = time.perf_counter() - t0
+    nn_launches = {c.__name__: c.launches for c in counts}
+    want = knn.nn_indices_plain(ref_t, query_t).cpu()
+    check(torch.equal(idx, want), "geometry.nn: indices differ from plain")
+    out["geometry_nn"] = dict(shape=list(query.shape[:2]) + [ref.shape[1]],
+                              s=nn_s, identical=True, launches=nn_launches)
+
+    t0 = time.perf_counter()
+    res = quiet(visualize_data.main, ["--out", os.path.join(root, "viz")])[0]
+    check(all(os.path.getsize(res[k]) > 0 for k in ("png", "obj")),
+          f"visualize_data: {res}")
+    out["visualize_data"] = dict(s=time.perf_counter() - t0,
+                                 n_vertices=res["n_vertices"])
+
+    t0 = time.perf_counter()
+    res = quiet(ambiguity_floor.main, [
+        "--artifact", os.path.join(ROOT, "docs", "results",
+                                   "r4_refine_table_joint.json"),
+        "--n-rotations", str(YCB_N_ROTATIONS),
+        "--out", os.path.join(root, "ambiguity.json")])[0]
+    check(np.isfinite(res["summary"]["corr_floor_vs_median_add"]),
+          f"ambiguity_floor: {res['summary']}")
+    out["ambiguity_floor"] = dict(s=time.perf_counter() - t0,
+                                  n_rotations=YCB_N_ROTATIONS,
+                                  summary=res["summary"])
+
+    run_a = os.path.join(fit_root, "run_a")
+    archive = os.path.join(root, "run_a_best_bf16.npz")
+    t0 = time.perf_counter()
+    quiet(export_checkpoint.main, ["--log-dir", run_a, "--out", archive,
+                                   "--device", device.type])
+    export_s = time.perf_counter() - t0
+    own = os.path.join(run_a, "snapshot_model_best_validation_main_auc.npz")
+    with np.load(archive) as a, np.load(own) as b:
+        check(sorted(a.files) == sorted(b.files)
+              and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                      for k in b.files),
+              "export_checkpoint: the archive differs from save_best's")
+        entries = len(b.files)
+    out["export_checkpoint"] = dict(s=export_s, entries=entries,
+                                    equal_to_save_best=True)
+    return out, nn_launches
+
+
+def phase_data_side(device, small, counts, fit_root, data):
+    """Phase 16: the data side, (a) to (e); returns each path's launches.
+
+    The factory renders each instance's full model for its visibility,
+    which needs a bank with a shape or surface samples and a colour a
+    class; ``YCBVideoModels`` has neither, in the JAX package as here, so
+    the factory renders with the procedural bank (whose shapes the frames
+    show) and ``fit`` trains on the YCB bank: its meshio solid grids feed
+    the occupancy loss (min_dist) and its points ADD-S (knn)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ycb_root(fit_root)
+    seconds = {}
+    t = time.perf_counter()
+    bank = phase_ycb_bank(root)
+    seconds["ycb_bank"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fit, fit_launches = phase_ycb_fit(device, small, counts, root)
+    seconds["ycb_fit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    profiles, profile_launches = phase_profile_clis(device, small, counts,
+                                                    root)
+    seconds["profile_clis"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tools, nn_launches = phase_data_tools(device, small, counts, fit_root,
+                                          root)
+    seconds["data_tools"] = time.perf_counter() - t
+    shutil.rmtree(root)
+    seconds["total"] = time.perf_counter() - t0
+    emit(dict(phase="data_side", ok=True, device=str(device), data=data,
+              ycb_bank=bank, ycb_fit=fit, profiles=profiles,
+              data_tools=tools, seconds=seconds))
+    return dict(ycb_fit=fit_launches, geometry_nn=nn_launches,
+                **profile_launches)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -5052,6 +5557,7 @@ def main(argv=None):
 def run_phases(device, small, counts, native_build, fit_root):
     fit_data_info = fit_data(fit_root, small)
     rest_data_info = rest_data(fit_root, small)
+    ycb_data_info = ycb_data(fit_root, small)
     setup = train_setup(device, small)
     train_inputs = train_min_dist_inputs(setup[1], setup[3], device)
     icp_scene = make_icp_scene(9, small)
@@ -5088,6 +5594,7 @@ def run_phases(device, small, counts, native_build, fit_root):
         scene_models, frames, model16)
     p14, occupancy = phase_replay_and_tools(device, small, counts, fit_root)
     p15 = phase_robot(device, small, counts, fit_root, frames)
+    p16 = phase_data_side(device, small, counts, fit_root, ycb_data_info)
     # the first shape is align_occupancy_grids' (its defaults)
     occ_timing = next(iter(occupancy["grids"].values()))
 
@@ -5105,7 +5612,10 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + trained_seg_launches
                   + sum(p14[k]["min_dist_voxels"] for k in (
                       "occupancy_registration", "replay", "unpadded_icc"))
-                  + sum(p15.values())),
+                  + sum(p15.values())
+                  + sum(p16[k]["min_dist_voxels"] for k in (
+                      "ycb_fit", "profile_train", "profile_backward",
+                      "geometry_nn"))),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -5127,7 +5637,12 @@ def run_phases(device, small, counts, native_build, fit_root):
                                   "min_dist_voxels"],
                               ros_node=p15["ros_node"],
                               pick_episode=p15["pick_episode"],
-                              demo=p15["demo"]),
+                              demo=p15["demo"],
+                              ycb_fit=p16["ycb_fit"]["min_dist_voxels"],
+                              profile_train=p16["profile_train"][
+                                  "min_dist_voxels"],
+                              profile_backward=p16["profile_backward"][
+                                  "min_dist_voxels"]),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -5155,7 +5670,10 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + textured_launches["nn_indices"]
                   + posenet_launches["nn_indices"]
                   + p14["replay"]["nn_indices"]
-                  + p14["align_pointclouds"]["nn_indices"]),
+                  + p14["align_pointclouds"]["nn_indices"]
+                  + sum(p16[k]["nn_indices"] for k in (
+                      "ycb_fit", "profile_train", "profile_backward",
+                      "geometry_nn"))),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
@@ -5168,7 +5686,13 @@ def run_phases(device, small, counts, native_build, fit_root):
                               posenet_fit=posenet_launches["nn_indices"],
                               replay_eval=p14["replay"]["nn_indices"],
                               align_pointclouds=p14["align_pointclouds"][
-                                  "nn_indices"]),
+                                  "nn_indices"],
+                              ycb_fit=p16["ycb_fit"]["nn_indices"],
+                              profile_train=p16["profile_train"][
+                                  "nn_indices"],
+                              profile_backward=p16["profile_backward"][
+                                  "nn_indices"],
+                              geometry_nn=p16["geometry_nn"]["nn_indices"]),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],
@@ -5177,6 +5701,7 @@ def run_phases(device, small, counts, native_build, fit_root):
             "shape", "kernel_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
     )]
+    emit(dict(script_s=time.perf_counter() - _START))
     if small:
         emit(dict(rehearsal_kernels=kernels))
         emit(dict(ok=True, rehearsal="cpu"))

@@ -1,6 +1,8 @@
 """Datasets of the port: model banks, the pose-estimation example factory
 and its synthetic frame source, the reindexed and packed stores, and the
-training transform (numpy and cv2 on the host)."""
+training transform (numpy and cv2 on the host). The YCB-Video bank and
+datasets are imported on first use (``YCBVideoModels`` etc.), as in the
+JAX package."""
 
 # flake8: noqa: F401
 
@@ -27,3 +29,17 @@ from .rgbd_pose_estimation.reindexed import RGBDPoseEstimationDatasetReIndexed
 from .rgbd_pose_estimation.reindexed import RandomSamplingDataset
 from .rgbd_pose_estimation.synthetic import SyntheticRGBDPoseEstimationDataset
 from .transform import Transform
+from . import ycb_video
+
+
+def __getattr__(name):
+    # ``datasets.YCBVideoModels`` etc. at the package's top level, as the
+    # reference's ``morefusion/datasets/__init__.py``
+    if name in (
+        "YCBVideoModels",
+        "YCBVideoDataset",
+        "YCBVideoSyntheticDataset",
+        "YCBVideoRGBDPoseEstimationDataset",
+    ):
+        return getattr(ycb_video, name)
+    raise AttributeError(name)

@@ -111,6 +111,10 @@ class ModelsBase:
     def class_names(self):
         raise NotImplementedError
 
+    @property
+    def n_class(self):
+        return len(self.class_names)
+
     def get_pcd(self, class_id) -> np.ndarray:
         """(N, 3) surface points of the CAD model."""
         raise NotImplementedError

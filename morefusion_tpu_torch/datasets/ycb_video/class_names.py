@@ -1,7 +1,8 @@
 """YCB-Video class tables.
 
 Own copy of ``morefusion_tpu/datasets/ycb_video/class_names.py``: 21
-foreground classes, 5 of them treated as symmetric by the ADD-S protocol.
+foreground classes, 5 of them treated as symmetric by the ADD-S protocol
+(the other 16 are the asymmetric ones).
 """
 
 import numpy as np
@@ -50,6 +51,18 @@ class_ids_symmetric = np.array(
     dtype=np.int32,
 )
 class_ids_symmetric.setflags(write=False)
+
+class_names_asymmetric = class_names[
+    ~np.isin(class_names, class_names_symmetric)
+    & (class_names != "__background__")
+]
+class_names_asymmetric.setflags(write=False)
+
+class_ids_asymmetric = np.array(
+    [int(np.where(class_names == n)[0][0]) for n in class_names_asymmetric],
+    dtype=np.int32,
+)
+class_ids_asymmetric.setflags(write=False)
 
 n_classes = len(class_names)  # 22 incl. background
 n_fg_classes = n_classes - 1  # 21

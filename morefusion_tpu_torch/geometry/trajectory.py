@@ -1,7 +1,7 @@
 """Camera trajectories: greedy path ordering and spline interpolation.
 
-Own copy of ``sort`` and ``interpolate`` from
-``morefusion_tpu/geometry/trajectory.py``.
+Own copy of ``morefusion_tpu/geometry/trajectory.py``: ``sort``,
+``sort_by`` and ``interpolate``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,28 @@ def sort(points: np.ndarray) -> np.ndarray:
         row = np.where(visited, np.inf, dist[order[i - 1]])
         order[i] = int(np.argmin(row))
         visited[order[i]] = True
+    return points[order]
+
+
+def sort_by(points: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """Order ``points`` by greedily assigning the nearest remaining point
+    to each ``key`` point in turn."""
+    points = np.asarray(points)
+    key = np.asarray(key)
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError("points must be (N, 3)")
+    if key.ndim != 2 or key.shape[1] != 3:
+        raise ValueError("key must be (N, 3)")
+    if len(points) != len(key):
+        raise ValueError("points and key differ in length")
+
+    dist = _pairwise_sq(key.astype(float), points.astype(float))
+    taken = np.zeros(len(points), dtype=bool)
+    order = np.empty(len(key), dtype=int)
+    for i in range(len(key)):
+        row = np.where(taken, np.inf, dist[i])
+        order[i] = int(np.argmin(row))
+        taken[order[i]] = True
     return points[order]
 
 

@@ -79,14 +79,25 @@ def test_port_sources_exist():
                    "runtime/picking.py", "runtime/robot.py",
                    "runtime/planning_scene.py", "runtime/moveit_robot.py",
                    "runtime/ros_adapter.py", "extra/viz.py", "cli/demo.py",
-                   "utils/timer.py", "utils/profiling.py"):
+                   "utils/timer.py", "utils/profiling.py",
+                   "extra/meshio.py", "geometry/bbox.py",
+                   "geometry/pointcloud.py", "geometry/voxel_mapping.py",
+                   "datasets/ycb_video/models.py",
+                   "datasets/ycb_video/dataset.py",
+                   "cli/compute_voxel_size.py", "cli/visualize_data.py",
+                   "cli/ambiguity_floor.py", "cli/profile_train.py",
+                   "cli/profile_backward.py", "cli/export_checkpoint.py",
+                   "cli/plot_curves.py", "cli/resolution_ab.py",
+                   "cli/regen_datasets.py", "cli/campaign_guardian.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 
-# the card's machine is not known to have these (neither machine has ROS):
+# the card's machine is not known to have these (neither machine has ROS;
+# matplotlib draws only plot_curves' PNG):
 # the port imports them only inside the function that needs them
 OPTIONAL = ("cv2", "sklearn", "imageio", "rospy", "cv_bridge",
-            "message_filters", "tf", "geometry_msgs", "sensor_msgs")
+            "message_filters", "tf", "geometry_msgs", "sensor_msgs",
+            "matplotlib")
 
 
 @pytest.mark.parametrize(
