@@ -6,9 +6,11 @@
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
 and ``knn.cu``) with ``nvcc`` and makes phase 11's, phase 13's and phase
-16's data, then runs sixteen phases, each printing one JSON line (phases 13
-and 15 one a step, then their total) with ``elapsed_s``, the seconds since
-the start:
+16's data, then runs seventeen phases, each printing one JSON line (phases
+13 and 15 one a step, then their total) with ``elapsed_s``, the seconds
+since the start; the CPU's sides of phases 12 and 14 run in spawned
+processes beside the later phases and print their lines
+(``evaluation_exact_replay``, ``replay_card_vs_cpu``) at the end:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -142,7 +144,7 @@ the start:
    exact-mode problem of that frame's first two crops replayed for
    ``ICC_REPLAY_ITERATIONS`` (within phase
    9's replay bounds or twice the CPU's own spread under a start jitter,
-   see ``exact_replay``);
+   see ``exact_replay``; the CPU's refines in a background process);
 13. the rest of training, on phase 11's packed sets and frames made with
    them: (a) ``cli.generate_data`` of one seed with and without
    ``--textured`` (8 val frames each, forked workers): the same scene, only
@@ -178,7 +180,8 @@ the start:
    checkpoint, fp32) on a sequence it records, counted: the mean ADD of raw,
    voted, refined and refined+ICP poses, frames per second; then its first
    ``REPLAY_SYNC_FRAMES`` frames replayed on the card and the CPU in
-   deterministic mode (n_votes 1, ICC at ``ICC_REPLAY_ITERATIONS``): labels,
+   deterministic mode (n_votes 1, ICC at ``ICC_REPLAY_ITERATIONS``; the
+   CPU's pass in a background process): labels,
    grids, spawns and ICC problems identical, poses within
    ``PIPE_POSE_ATOL``; the CPU's ICC problems refined on the card from the
    CPU's starts, as phase 9 replays them (poses within ``PIPE_POSE_ATOL``,
@@ -214,8 +217,9 @@ the start:
    launches; run again with min_dist's plain version, poses, plans,
    waypoints and outcomes identical (deterministic mode); (c) ``cli.demo
    --refine --log-dir``
-   with the occ checkpoint: the 240 x 960 PNG, ms, launches; (d) one node
-   callback inside ``utils.profiling.trace``: the Chrome trace holds the
+   with the occ checkpoint: the 240 x 960 PNG, ms, launches; (d) the
+   first node callback of (a)'s frames that refines, replayed on a fresh
+   node inside ``utils.profiling.trace``: the Chrome trace holds the
    min_dist kernel by name;
 16. the data side: (a) a YCB-Video tree written before anything runs on
    the card (``ycb_data``): ``YCB_Video_Models`` with each class's
@@ -243,7 +247,29 @@ the start:
    on the card against its plain version (indices identical),
    ``cli.visualize_data``, ``cli.ambiguity_floor`` at ``--n-rotations
    500`` and ``cli.export_checkpoint`` on phase 11's run A (the archive
-   equal to ``save_best``'s), each timed once.
+   equal to ``save_best``'s), each timed once;
+17. data parallelism, at phase 6's batch from the occ checkpoint (B = 16,
+   ``+occupancy``, fp32): (a) ``make_dp_train_step`` at world size 1 under
+   an ``nccl`` group of this process against the bare ``make_train_step``
+   from the same weights, two steps in deterministic mode (metrics, the
+   first step's gradients and the weights after: identical expected, held
+   within phase 6's kernel-vs-plain tolerances), counted, then both timed
+   in turns; (b) two ranks in processes of their own
+   (``--dp-rank-child``), a ``gloo`` group on the one card (NCCL refuses
+   two ranks on a device), 8 rows each, two steps in deterministic mode
+   with the kernels and again with the plain versions: the ranks' weights
+   bit-equal, held to this process's emulation (each half through the
+   single-device loss with that rank's generators, the gradients averaged,
+   Adam) and kernel against plain within phase 11's tolerances; (c)
+   ``cli.train`` under ``torch.distributed.run --nproc_per_node 1``
+   (``--train-child``) for three steps on phase 11's packed sets in the
+   transfer form, counted, with the bytes of a packed batch against the
+   classic one, the card's unpack against the CPU's (identical), and
+   ``reconstruct_pcd`` against the packed clouds in mm; (d)
+   ``profile_train``'s DP step beside its bare step (from phase 16's
+   call); (e) ``cli.train_segmentation`` for four steps under the group of
+   this process (its step under DDP). Each child is killed at
+   ``DP_CHILD_TIMEOUT``, so a hung rendezvous fails the phase.
 
 Then the script's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -2597,7 +2623,7 @@ def run_cli(argv, spy=None, keep=None):
 
     if spy is None:
         return cli.main(argv)
-    real = loop.make_train_step
+    real = loop.make_dp_train_step
 
     def make(*args, **kw):
         step = real(*args, **kw)
@@ -2610,7 +2636,7 @@ def run_cli(argv, spy=None, keep=None):
 
         return spied
 
-    with mock.patch.object(loop, "make_train_step", make):
+    with mock.patch.object(loop, "make_dp_train_step", make):
         return cli.main(argv)
 
 
@@ -2711,6 +2737,8 @@ def phase_fit(device, small, counts, data, root, bare_step_ms):
     evals = [r["iteration"] for r in log_a if "main/add_or_add_s/auc" in r]
     check(evals == [spe, 2 * spe], f"fit: evaluations at {evals}")
     timing = read_json(os.path.join(run_a, "timing.json"))
+    check(len(timing.get("pack_ms", [])) >= 2 * spe,
+          "fit: run A did not ship its batches in the transfer form")
     names = ["snapshot_trainer_latest"] + [
         f"snapshot_model_best_validation_main_{m}{ext}"
         for m in ("add_or_add_s", "auc") for ext in ("", ".npz")]
@@ -2837,6 +2865,8 @@ def phase_fit(device, small, counts, data, root, bare_step_ms):
                                    if bare_step_ms else None),
             host_prep_ms=median(timing["host_prep_ms"]),
             copy_ms=median(timing["copy_ms"]),
+            pack_ms=median(timing["pack_ms"]),
+            batch_bytes=timing["batch_bytes"],
             wait_ms=median(timing["wait_ms"]),
             wait_ms_each=timing["wait_ms"],
             eval_ms_per_batch=median(timing["eval_ms_per_batch"]),
@@ -3054,6 +3084,73 @@ def icc_args(run, data, mode, iterations):
         "--icc-iterations", str(iterations)])
 
 
+#: host work that runs in a spawned process beside the card's later phases
+_BACKGROUND = {}
+BACKGROUND_THREADS = 4  # of the host's 8 cores
+
+
+def start_background(name, fn, *args, inline=False):
+    """Run ``fn(*args)`` in a spawned process (no fork: this process has
+    run threads and the card), or here with ``inline`` (the rehearsal,
+    whose patches a spawned process would not see);
+    :func:`finish_background` collects it."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    if inline:
+        future = concurrent.futures.Future()
+        future.set_result(fn(*args))
+        _BACKGROUND[name] = (None, future, t0)
+        return
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    _BACKGROUND[name] = (pool, pool.submit(fn, *args), t0)
+
+
+def stop_background():
+    """Stop every background process still running (a phase failed before
+    its job was collected)."""
+    for name in list(_BACKGROUND):
+        pool, _, _ = _BACKGROUND.pop(name)
+        if pool is not None:
+            for proc in list(getattr(pool, "_processes", {}).values()):
+                proc.terminate()
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def finish_background(name):
+    """``(the result of the job, its seconds from start to collection)``;
+    its process is stopped."""
+    pool, future, t0 = _BACKGROUND.pop(name)
+    try:
+        return future.result(), time.perf_counter() - t0
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+
+
+def cpu_icc_refines(args, T0, problem, threads):
+    """The CPU's side of ``exact_replay``, in a background process (on
+    ``threads`` threads; None leaves them): the refine from the starts,
+    then ``ICC_JITTER_RUNS`` refines from starts moved by
+    ``ICC_START_JITTER``."""
+    from morefusion_tpu_torch.cli import evaluate
+
+    if threads:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    runs = []
+    for k in range(ICC_JITTER_RUNS + 1):
+        starts = [np.array(T, dtype=np.float64) for T in T0]
+        if k:
+            for T in starts:
+                T[:3, 3] += rng.normal(0, ICC_START_JITTER, 3)
+        runs.append(evaluate.run_icc(args, starts, problem, 1, "cpu"))
+    return runs, time.perf_counter() - t0
+
+
 def exact_replay(device, run, data, T0, problem):
     """One exact-mode ICC problem replayed for ``ICC_REPLAY_ITERATIONS``
     on the card and on the CPU from the same starts. On the model's poses
@@ -3065,17 +3162,16 @@ def exact_replay(device, run, data, T0, problem):
     wider, within twice that spread: the largest move of the CPU's result
     when its start translations move by ``ICC_START_JITTER`` (phase 9's
     ``ICC_JITTER_RUNS`` draws; the card's rounding is no rigid move of the
-    starts)."""
-    from morefusion_tpu_torch.cli import evaluate
+    starts).
 
+    The card's refine runs here; the CPU's refines run in a background
+    process beside the later phases (``cpu_icc_refines``). Returns a
+    function that collects them and makes the check."""
     args = icc_args(run, data, "exact", ICC_REPLAY_ITERATIONS)
-
-    def refine(dev, rng=None):
-        starts = [np.array(T, dtype=np.float64) for T in T0]
-        if rng is not None:
-            for T in starts:
-                T[:3, 3] += rng.normal(0, ICC_START_JITTER, 3)
-        return evaluate.run_icc(args, starts, problem, 1, dev)
+    card = evaluate_run_icc(args, T0, problem, device)
+    inline = device.type == "cpu"  # the rehearsal
+    start_background("exact_replay", cpu_icc_refines, args, T0, problem,
+                     None if inline else BACKGROUND_THREADS, inline=inline)
 
     def apart(a, b):
         (T_a, l_a, _), (T_b, l_b, _) = a, b
@@ -3083,21 +3179,34 @@ def exact_replay(device, run, data, T0, problem):
                     pose=float(np.abs(T_a - T_b).max()),
                     loss=float(np.abs(l_a - l_b).max()))
 
-    card, cpu = refine(device), refine("cpu")
-    err = apart(card, cpu)
-    rng = np.random.RandomState(0)
-    runs = [apart(refine("cpu", rng), cpu) for _ in range(ICC_JITTER_RUNS)]
-    spread = {k: max(r[k] for r in runs) for k in err}
-    n_g, n_c = card[2], cpu[2]
-    fixed = dict(first_loss=ICC_LOSS_ATOL, pose=PIPE_POSE_ATOL,
-                 loss=ICC_LOSS_ATOL)
-    bound = {k: max(fixed[k], 2 * spread[k]) for k in fixed}
-    check(n_g == n_c and all(err[k] <= bound[k] for k in err),
-          f"evaluation: exact ICC replay card vs CPU {err}, n_iter {n_g} / "
-          f"{n_c}; bounds {bound} (the CPU's spread {spread})")
-    return dict(iterations=ICC_REPLAY_ITERATIONS, err=err,
-                cpu_jitter_spread=spread, jitter=ICC_START_JITTER,
-                jitter_runs=ICC_JITTER_RUNS, bound=bound)
+    def finish():
+        (runs, cpu_s), wall_s = finish_background("exact_replay")
+        cpu = runs[0]
+        err = apart(card, cpu)
+        jitter = [apart(r, cpu) for r in runs[1:]]
+        spread = {k: max(r[k] for r in jitter) for k in err}
+        n_g, n_c = card[2], cpu[2]
+        fixed = dict(first_loss=ICC_LOSS_ATOL, pose=PIPE_POSE_ATOL,
+                     loss=ICC_LOSS_ATOL)
+        bound = {k: max(fixed[k], 2 * spread[k]) for k in fixed}
+        check(n_g == n_c and all(err[k] <= bound[k] for k in err),
+              f"evaluation: exact ICC replay card vs CPU {err}, n_iter "
+              f"{n_g} / {n_c}; bounds {bound} (the CPU's spread {spread})")
+        return dict(iterations=ICC_REPLAY_ITERATIONS, err=err,
+                    cpu_jitter_spread=spread, jitter=ICC_START_JITTER,
+                    jitter_runs=ICC_JITTER_RUNS, bound=bound,
+                    cpu_s=cpu_s, background_wall_s=wall_s,
+                    cpu_threads=BACKGROUND_THREADS)
+
+    return finish
+
+
+def evaluate_run_icc(args, T0, problem, device):
+    from morefusion_tpu_torch.cli import evaluate
+
+    return evaluate.run_icc(
+        args, [np.array(T, dtype=np.float64) for T in T0], problem, 1,
+        device)
 
 
 def phase_evaluation(device, small, counts, fit_root):
@@ -3239,9 +3348,10 @@ def run_evaluation(device, small, counts, fit_root):
     # host), so two leave room for phase 14
     t0 = time.perf_counter()
     replay_idxs = idxs[:2]
-    replay = exact_replay(device, occ, data,
-                          *icc_frame_problem(device, occ, data, replay_idxs))
-    seconds["card_vs_cpu_exact_replay"] = time.perf_counter() - t0
+    finish_replay = exact_replay(
+        device, occ, data, *icc_frame_problem(device, occ, data,
+                                              replay_idxs))
+    seconds["card_vs_cpu_exact_replay_card"] = time.perf_counter() - t0
     shutil.rmtree(root)
 
     emit(dict(
@@ -3256,9 +3366,16 @@ def run_evaluation(device, small, counts, fit_root):
         kernel_vs_plain=dict(tolerance="identical", **vs_plain),
         card_vs_cpu=dict(raw_crops=cfg["cpu_examples"],
                          raw_max_add_err=raw_err, raw_tolerance=POSE_ATOL,
-                         exact_replay=dict(objects=len(replay_idxs),
-                                           **replay))))
-    return launches
+                         exact_replay=dict(
+                             objects=len(replay_idxs),
+                             cpu="in a background process, checked in "
+                                 "the line evaluation_exact_replay"))))
+
+    def finish():
+        emit(dict(phase="evaluation_exact_replay", ok=True,
+                  objects=len(replay_idxs), **finish_replay()))
+
+    return launches, finish
 
 
 # -------------------------------------------------------------- phase 13
@@ -3519,6 +3636,10 @@ def phase_posenet(device, small, counts, fit_root, setup):
                                        for k, v in step_ms.items()},
                        eval_ms_per_batch=median(timing["eval_ms_per_batch"]),
                        save_best_ms=median(timing["save_best_ms"]),
+                       sps_window=[r["main/sps_window"] for r in rows],
+                       copy_ms=median(timing["copy_ms"]),
+                       pack_ms=median(timing.get("pack_ms", [])),
+                       batch_bytes=timing["batch_bytes"],
                        losses=[r["main/loss"] for r in rows], auc=auc),
               launches=launches))
     return launches
@@ -4018,52 +4139,32 @@ def phase_replay(device, small, counts, bank, root):
               " are no whole number of 30-iteration refines")
 
     # the first frames on the card and on the CPU, deterministic, every
-    # frame refined (n_votes 1) for ICC_REPLAY_ITERATIONS iterations
+    # frame refined (n_votes 1) for ICC_REPLAY_ITERATIONS iterations; the
+    # CPU's pass runs in a background process beside the later phases
     raw = list(runtime.load_sequence(seq))[:REPLAY_SYNC_FRAMES]
     frames = [sequence_stream_frame(f) for f in raw]
     train_args = training.load_args(occ)
+    cpu_state = _eval.restore(_eval.build_model(train_args, "cpu"),
+                              occ).state_dict()
     t0 = time.perf_counter()
+    start_background("replay_cpu_pass", cpu_sync_pass, frames, train_args,
+                     cpu_state, small, None if small else BACKGROUND_THREADS,
+                     inline=small)
+    del cpu_state
+
+    def problem_kw(p, dev):
+        kw = dict(p["kw"], device=dev)
+        if small:
+            kw["max_points"] = 128
+        return kw
+
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with shorter_icc(pipeline_module, ICC_REPLAY_ITERATIONS,
                          128 if small else None):
-            passes = [run_sync_pass(
+            got, got_problems = run_sync_pass(
                 bank, frames, _eval.restore(_eval.build_model(
-                    train_args, dev), occ), dev, 32, 1)
-                for dev in (device, "cpu")]
-        (got, got_problems), (want, want_problems) = passes
-        bad = []
-        pose_err, refined_err = compare_frames(got, want, bad)
-        if pose_err > PIPE_POSE_ATOL:
-            bad.append(f"poses {pose_err} apart")
-        if len(got_problems) != len(want_problems) or not got_problems:
-            bad.append(f"{len(got_problems)} vs {len(want_problems)} "
-                       "refines")
-
-        def problem_kw(p, dev):
-            kw = dict(p["kw"], device=dev)
-            if small:
-                kw["max_points"] = 128
-            return kw
-
-        # the CPU's problems refined on the card from the CPU's starts
-        replay = dict(pose=0.0, loss=0.0)
-        for gp, wp in zip(got_problems, want_problems):
-            compare_problems(gp, wp, bad)
-            T_g, l_g, n_g = IterativeCollisionCheck(
-                *wp["args"], **problem_kw(wp, device)).refine(
-                    iterations=ICC_REPLAY_ITERATIONS)
-            T_w, l_w, n_w = wp["refined"]
-            replay["pose"] = max(replay["pose"], float(np.abs(
-                T_g - T_w).max()))
-            replay["loss"] = max(replay["loss"], float(np.abs(
-                l_g - l_w).max()))
-            if n_g != n_w:
-                bad.append(f"ICC replay n_iter {n_g} vs {n_w}")
-        bound = dict(pose=PIPE_POSE_ATOL, loss=ICC_LOSS_ATOL)
-        if any(replay[k] > bound[k] for k in bound):
-            bad.append(f"ICC replays card vs CPU {replay}, bounds {bound}")
-        check(not bad, "replay card vs cpu: " + "; ".join(bad))
+                    train_args, device), occ), device, 32, 1)
 
         # one replayed frame's problem, kernel against plain
         p = got_problems[-1]
@@ -4098,27 +4199,93 @@ def phase_replay(device, small, counts, bank, root):
           "replay: the ICC problem's refine differs kernel against plain")
     check(icp_same and all(icp_same),
           f"replay: ICP rows kernel against plain identical {icp_same}")
-    sync_s = time.perf_counter() - t0
+    card_s = time.perf_counter() - t0
+
+    def finish():
+        """The CPU's pass against the card's, and the CPU's ICC problems
+        refined on the card from the CPU's starts."""
+        ((want, want_problems), cpu_s), wall_s = finish_background(
+            "replay_cpu_pass")
+        bad = []
+        pose_err, refined_err = compare_frames(got, want, bad)
+        if pose_err > PIPE_POSE_ATOL:
+            bad.append(f"poses {pose_err} apart")
+        if len(got_problems) != len(want_problems) or not got_problems:
+            bad.append(f"{len(got_problems)} vs {len(want_problems)} "
+                       "refines")
+        replay = dict(pose=0.0, loss=0.0)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for gp, wp in zip(got_problems, want_problems):
+                compare_problems(gp, wp, bad)
+                T_g, l_g, n_g = IterativeCollisionCheck(
+                    *wp["args"], **problem_kw(wp, device)).refine(
+                        iterations=ICC_REPLAY_ITERATIONS)
+                T_w, l_w, n_w = wp["refined"]
+                replay["pose"] = max(replay["pose"], float(np.abs(
+                    T_g - T_w).max()))
+                replay["loss"] = max(replay["loss"], float(np.abs(
+                    l_g - l_w).max()))
+                if n_g != n_w:
+                    bad.append(f"ICC replay n_iter {n_g} vs {n_w}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        bound = dict(pose=PIPE_POSE_ATOL, loss=ICC_LOSS_ATOL)
+        if any(replay[k] > bound[k] for k in bound):
+            bad.append(f"ICC replays card vs CPU {replay}, bounds {bound}")
+        check(not bad, "replay card vs cpu: " + "; ".join(bad))
+        emit(dict(phase="replay_card_vs_cpu", ok=True,
+                  frames=len(frames), n_votes=1,
+                  icc_iterations=ICC_REPLAY_ITERATIONS,
+                  max_pose_err=pose_err, refines=len(got_problems),
+                  refined_from_own_starts_max_pose_err=refined_err,
+                  icc_replay=dict(err=replay, bound=bound),
+                  tolerance=dict(pose=PIPE_POSE_ATOL,
+                                 labels_grids_spawns_problems="identical"),
+                  card_s=card_s, cpu_s=cpu_s, background_wall_s=wall_s,
+                  cpu_threads=None if small else BACKGROUND_THREADS))
+
     row = dict(argv=argv, n_frames=n_frames, n_objects=args.n_objects,
                image_shape=list(args.image_shape), wall_s=wall_s,
                loop_s=loop_s, frames_per_s=n_frames / loop_s,
                launches=launches, n_rows=len(rows),
                add_mean={k: summary[k]["mean"] for k in replay_eval.KEYS},
-               summary=summary, card_vs_cpu=dict(
-                   frames=len(frames), n_votes=1,
-                   icc_iterations=ICC_REPLAY_ITERATIONS,
-                   max_pose_err=pose_err, refines=len(got_problems),
-                   refined_from_own_starts_max_pose_err=refined_err,
-                   icc_replay=dict(err=replay, bound=bound),
-                   tolerance=dict(pose=PIPE_POSE_ATOL,
-                                  labels_grids_spawns_problems="identical"),
-                   seconds=sync_s),
+               summary=summary,
+               card_vs_cpu="the CPU's pass runs in a background process, "
+                           "checked in the line replay_card_vs_cpu",
                icc_kernel_vs_plain=dict(objects=len(p["args"][0]),
                                         iterations=iterations, n_iter=n_k,
                                         tolerance="identical"),
                icp_kernel_vs_plain=dict(rows=len(icp_same),
                                         tolerance="identical"))
-    return row, launches
+    return row, launches, finish
+
+
+def cpu_sync_pass(frames, train_args, state, small, threads):
+    """Phase 14's CPU pass of the replayed frames (``run_sync_pass`` in
+    deterministic mode, ICC at ``ICC_REPLAY_ITERATIONS``), in a background
+    process on ``threads`` threads (None leaves them); returns its result
+    and seconds."""
+    from morefusion_tpu_torch.cli import _eval
+    from morefusion_tpu_torch.contrib import mapping_native
+    from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.runtime import pipeline as pipeline_module
+
+    if threads:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    mapping_native.load_library()
+    model = _eval.build_model(train_args, "cpu")
+    model.load_state_dict(state, strict=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with shorter_icc(pipeline_module, ICC_REPLAY_ITERATIONS,
+                         128 if small else None):
+            out = run_sync_pass(ProceduralModels(), frames, model, "cpu", 32,
+                                1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, time.perf_counter() - t0
 
 
 def phase_unpadded_icc(device, small, counts):
@@ -4366,7 +4533,8 @@ def phase_replay_and_tools(device, small, counts, fit_root):
     occupancy, occ_launches = phase_occupancy(device, small, counts, bank)
     seconds["occupancy"] = time.perf_counter() - t
     t = time.perf_counter()
-    replay, replay_launches = phase_replay(device, small, counts, bank, root)
+    replay, replay_launches, finish_replay = phase_replay(
+        device, small, counts, bank, root)
     seconds["replay"] = time.perf_counter() - t
     t = time.perf_counter()
     unpadded, unpadded_launches = phase_unpadded_icc(device, small, counts)
@@ -4385,7 +4553,7 @@ def phase_replay_and_tools(device, small, counts, fit_root):
               functions=functions, host_tools=tools, seconds=seconds))
     return dict(occupancy_registration=occ_launches, replay=replay_launches,
                 unpadded_icc=unpadded_launches,
-                align_pointclouds=align_launches), occupancy
+                align_pointclouds=align_launches), occupancy, finish_replay
 
 
 # -------------------------------------------------------------- phase 15
@@ -4617,8 +4785,10 @@ def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
     modules, fed ``ROS_FRAMES`` frames at ``main``'s 3 votes (again at 1
     where no track spawns, as phase 9), in deterministic mode; a second
     ``main`` builds the same pipeline, fed the same frames directly. (d)
-    one more callback of the first node under the profiler. Prints both
-    lines; returns the min_dist launches and the first node's pipeline."""
+    the first callback that refines, on a third node fed the frames before
+    it, under the profiler (the node's last frames may refine nothing once
+    every object has spawned). Prints both lines; returns the min_dist
+    launches and the first node's pipeline."""
     from morefusion_tpu_torch import runtime
     from morefusion_tpu_torch.runtime import pipeline as pipeline_module
     from morefusion_tpu_torch.runtime import ros_adapter
@@ -4629,6 +4799,8 @@ def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
          "~device": device.type},
         {float(k): f["T_cam2world"] for k, f in enumerate(stream)})
     callback_ms, launches, direct, problems = [], {}, [], []
+    refined_by = []  # the refines after each callback
+    trace = {}
 
     def feed(callback):
         for c in counts:
@@ -4639,7 +4811,20 @@ def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
             t0 = time.perf_counter()
             callback(*messages)
             callback_ms.append((time.perf_counter() - t0) * 1e3)
+            refined_by.append(len(problems))
         launches.update({c.__name__: c.launches for c in counts})
+
+    def profiled(callback):
+        """The frames up to the first that refined, the last under the
+        profiler."""
+        first = next((k for k, n in enumerate(refined_by) if n), 0)
+        for k in range(first):
+            callback(*ros_messages(stream[k], float(k)))
+        before = len(problems)
+        with record_icc(pipeline_module, problems):
+            trace.update(profile_callback(
+                callback, ros_messages(stream[first], float(first)), root))
+        trace.update(frame=first, refines=len(problems) - before)
 
     def process(callback):
         pipe = callback.__self__._pipeline
@@ -4658,6 +4843,7 @@ def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
             for n_votes in (3, 1):
                 kw = dict(NODE_PIPELINE, n_votes=n_votes)
                 del callback_ms[:], problems[:], stubs.published[:]
+                del refined_by[:]
                 with built_with(kw), record_icc(pipeline_module, problems):
                     stubs.spin = feed
                     t0 = time.perf_counter()
@@ -4671,13 +4857,11 @@ def phase_ros_node(device, small, counts, frames, occ_run, seg_run, root):
             with built_with(kw):
                 stubs.spin = process
                 ros_adapter.main()
+            with built_with(kw):
+                stubs.spin = profiled
+                ros_adapter.main()
         finally:
             torch.use_deterministic_algorithms(False)
-        with record_icc(pipeline_module, problems):
-            trace = profile_callback(
-                node_callback, ros_messages(stream[-1], float(ROS_FRAMES)),
-                root)
-        trace["refines"] = len(problems) - refines
     same = [np.array_equal(message_rows(m), w)
             for m, w in zip(published, direct)]
     n_md = launches["min_dist_voxels"]
@@ -5370,6 +5554,12 @@ def phase_profile_clis(device, small, counts, root):
     out["profile_train"] = dict(
         ms={k: v["ms"] for k, v in res["results"].items()},
         host_ms={k: v["host_ms"] for k, v in res["results"].items()},
+        dp_vs_bare={name: dict(
+            dp_ms=res["results"][f"train_step_{name}"]["ms"],
+            dp_host_ms=res["results"][f"train_step_{name}"]["host_ms"],
+            bare_ms=res["bare_results"][f"train_step_{name}"]["ms"],
+            bare_host_ms=res["bare_results"][f"train_step_{name}"][
+                "host_ms"]) for name in ("fp32", "bf16")},
         first_call_s=res["first_call_s"], step_flops=res["step_flops"],
         flop_counter_tflops_per_s=res["tflops_per_s"], card=res["card"],
         launches=launches["profile_train"])
@@ -5501,7 +5691,561 @@ def phase_data_side(device, small, counts, fit_root, data):
               ycb_bank=bank, ycb_fit=fit, profiles=profiles,
               data_tools=tools, seconds=seconds))
     return dict(ycb_fit=fit_launches, geometry_nn=nn_launches,
+                profile_train_steps=profiles["profile_train"]["dp_vs_bare"],
                 **profile_launches)
+
+
+# -------------------------------------------------------------- phase 17
+
+# data parallelism (phase 17) at phase 6's shapes from the occ checkpoint:
+# DP_STEPS steps compared, DP_TIMED_STEPS a turn of the timing. Phase (b)'s
+# two ranks share the one card: NCCL refuses two ranks on a device, so they
+# join a gloo group, which carries the gradients through the host
+DP_STEPS = 2
+DP_TIMED_STEPS = 5
+DP_CHILD_TIMEOUT = 600  # seconds a child process may take
+DP_TRAIN_STEPS = 3  # cli.train under torchrun
+DP_SEG_STEPS = 4  # cli.train_segmentation at world size 1
+
+
+def dp_child_env():
+    """A child's environment: two threads (three children share the
+    host's cores with this process)."""
+    return dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT)
+
+
+def dp_rank_child(rank, world, port, out_dir, small):
+    """One rank of phase 17 (b), in its own process: phase 6's batch, its
+    ``local_batch_slice`` on this rank, ``DP_STEPS`` data-parallel steps
+    from the occ checkpoint in deterministic mode with the kernels, then
+    again with their plain versions; the metrics, launches and weights go to
+    ``out_dir/rank{rank}.pt``."""
+    from morefusion_tpu_torch import parallel
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.training import trainer
+
+    device = torch.device("cpu") if small else torch.device("cuda", 0)
+    torch.set_num_threads(2)
+    parallel.maybe_initialize(init_method=f"tcp://127.0.0.1:{port}",
+                              world_size=world, rank=rank, local_rank=0,
+                              backend="gloo")
+    mesh = parallel.data_mesh(device.type)
+    check(str(mesh.device) == str(device) and mesh.world_size == world,
+          f"dp rank {rank}: mesh {mesh}")
+    _, bank, _, batch = train_setup(device, small)
+    shard = parallel.shard_batch(batch, mesh)
+    out = dict(rows=[int(i) for i in range(len(batch["rgb"]))[
+        parallel.local_batch_slice(len(batch["rgb"]), mesh)]])
+    counts = [md.min_dist_voxels, knn.nn_indices]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for which in ("kernel", "plain"):
+            model = serving_model(small, seed=5).to(device)
+            state = trainer.create_train_state(model)
+            step = trainer.make_dp_train_step(model, bank, mesh)
+            check(step.ddp is not None, "dp rank: no DDP wrapper")
+            plain = (mock.patch.object(md, "min_dist_voxels",
+                                       md.min_dist_voxels_plain),
+                     mock.patch.object(knn, "nn_indices",
+                                       knn.nn_indices_plain))
+            for c in counts:
+                c.launches = 0
+            metrics = []
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if which == "plain":
+                    for patch in plain:
+                        stack.enter_context(patch)
+                for _ in range(DP_STEPS):
+                    state, m = step(state, shard, True, seed=0)
+                    metrics.append({k: float(v) for k, v in m.items()})
+            out[which] = dict(
+                metrics=metrics, s=time.perf_counter() - t0,
+                launches={c.__name__: c.launches for c in counts},
+                weights={k: v.detach().cpu()
+                         for k, v in model.state_dict().items()})
+            del model, state, step
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def train_child(out_json, argv):
+    """Phase 17 (c), a process of ``torchrun --nproc_per_node 1``:
+    ``cli.train.main(argv)`` counted; what the parent reads goes to
+    ``out_json``."""
+    from morefusion_tpu_torch.cli import train as cli
+    from morefusion_tpu_torch.ops import knn
+    from morefusion_tpu_torch.ops import min_dist as md
+
+    counts = [md.min_dist_voxels, knn.nn_indices]
+    for c in counts:
+        c.launches = 0
+    state, summary = cli.main(argv)
+    dist = torch.distributed
+    with open(out_json, "w") as f:
+        json.dump(dict(step=state.step, summary=summary,
+                       launches={c.__name__: c.launches for c in counts},
+                       world_size=dist.get_world_size(),
+                       backend=dist.get_backend(),
+                       device=str(next(state.model.parameters()).device)),
+                  f)
+
+
+def child_main(argv):
+    """The entry of phase 17's child processes (``--dp-rank-child`` and
+    ``--train-child``)."""
+    sys.path.insert(0, ROOT)
+    small = "--small" in argv
+    if not small:
+        from morefusion_tpu_torch.ops import _build
+
+        check(torch.cuda.is_available(), "child: no CUDA device")
+        _build.load()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if argv[0] == "--dp-rank-child":
+        rank, world, port = map(int, argv[1:4])
+        dp_rank_child(rank, world, port, argv[4], small)
+    else:
+        sep = argv.index("--")
+        train_child(argv[1], argv[sep + 1:])
+    return 0
+
+
+def start_child(cmd, log_path):
+    """A child process in a session of its own (so that ``kill_child``
+    stops it with everything it started, torchrun's worker too), its
+    output to ``log_path``: ``(process, log file)``."""
+    log = open(log_path, "w")
+    return subprocess.Popen(cmd, cwd=ROOT, env=dp_child_env(), stdout=log,
+                            stderr=subprocess.STDOUT,
+                            start_new_session=True), log
+
+
+def kill_child(proc):
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def wait_child(proc_log, log_path, what):
+    """Wait for a child (killed at ``DP_CHILD_TIMEOUT``, so a hung
+    rendezvous fails the phase); fails on a non-zero exit."""
+    proc, log = proc_log
+    try:
+        rc = proc.wait(timeout=DP_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        kill_child(proc)
+        rc = "timeout"
+    finally:
+        log.close()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"{what}: exit {rc}: {tail}")
+
+
+def dp_single(device, small, counts, setup):
+    """(a) the DP step at world size 1 under the group of this process
+    against the bare step from the same weights: ``DP_STEPS`` steps in
+    deterministic mode (metrics, the first step's gradients and the weights
+    after), counted; then both timed in turns."""
+    from morefusion_tpu_torch import parallel
+    from morefusion_tpu_torch.training import trainer
+
+    _, bank, _, batch = setup
+    mesh = parallel.data_mesh(device.type)
+    check(mesh.distributed and mesh.world_size == 1,
+          f"dp ws1: mesh {mesh}")
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for kind in ("dp", "bare"):
+                model = serving_model(small, seed=5).to(device)
+                state = trainer.create_train_state(model)
+                step = (trainer.make_dp_train_step(model, bank, mesh)
+                        if kind == "dp" else
+                        trainer.make_train_step(model, bank))
+                if kind == "dp":
+                    check(step.ddp is not None, "dp ws1: no DDP wrapper")
+                for c in counts:
+                    c.launches = 0
+                metrics, grads = [], None
+                for _ in range(DP_STEPS):
+                    state, m = step(state, batch, True, seed=0)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if grads is None:
+                        grads = {n: p.grad.detach().clone()
+                                 for n, p in model.named_parameters()}
+                runs[kind] = dict(
+                    metrics=metrics, grads=grads, model=model, state=state,
+                    step=step,
+                    launches={c.__name__: c.launches for c in counts})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    dp, bare = runs["dp"], runs["bare"]
+    identical = dict(
+        metrics=dp["metrics"] == bare["metrics"],
+        grads=all(torch.equal(dp["grads"][n], bare["grads"][n])
+                  for n in bare["grads"]),
+        weights=all(torch.equal(a, b) for a, b in zip(
+            dp["model"].state_dict().values(),
+            bare["model"].state_dict().values())))
+    # expected equal (DDP's average over one rank divides by 1); held
+    # within phase 6's kernel-vs-plain tolerances where not
+    worst = compare_steps(
+        (dp["metrics"][-1], dp["grads"], None),
+        (bare["metrics"][-1], bare["grads"], None), STEP_LOSS_RTOL,
+        STEP_GRAD_RTOL, STEP_GRAD_TOTAL, "dp ws1 vs bare")
+    before = {k: v.to(device) for k, v in
+              serving_model(small, seed=5).state_dict().items()}
+    worst["weights"] = compare_updates(
+        dp["model"].state_dict(), bare["model"].state_dict(), before,
+        "dp ws1 vs bare")
+    if device.type == "cuda":
+        for k in ("min_dist_voxels", "nn_indices"):
+            check(dp["launches"][k] >= DP_STEPS,
+                  f"dp ws1: {dp['launches'][k]} {k} launches")
+    return dict(identical=identical, vs_bare=worst,
+                metrics=dp["metrics"], launches=dp["launches"],
+                backend=torch.distributed.get_backend()), runs, batch
+
+
+def dp_timing(device, runs, batch):
+    """Host ms a step (ending in a read of the loss) of the DP and the bare
+    step in turns: dp, bare, bare, dp."""
+    ms = {"dp": [], "bare": []}
+    for kind in ("dp", "bare", "bare", "dp"):
+        r = runs[kind]
+        for i in range(DP_TIMED_STEPS + 1):
+            sync(device)
+            t0 = time.perf_counter()
+            r["state"], m = r["step"](r["state"], batch, True, seed=0)
+            float(m["loss"])
+            if i:  # the first of a turn warms up
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+    out = {k: dict(step_ms=v, median_ms=median(v)) for k, v in ms.items()}
+    out["dp_minus_bare_ms"] = out["dp"]["median_ms"] - out["bare"]["median_ms"]
+    return out
+
+
+def dp_emulation(device, small, setup, ranks):
+    """(b)'s reference in this process: each rank's half through the
+    single-device loss with that rank's generators, the gradients averaged,
+    Adam; ``DP_STEPS`` steps in deterministic mode."""
+    from morefusion_tpu_torch.training import trainer
+
+    _, bank, _, batch = setup
+    model = serving_model(small, seed=5).to(device)
+    state = trainer.create_train_state(model)
+    loss_fn = trainer.make_loss_fn(model, bank)
+    halves = [{k: v[rows] for k, v in batch.items()}
+              for rows in (r["rows"] for r in ranks)]
+    metrics = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for s in range(DP_STEPS):
+                total, ms = None, []
+                for r, half in enumerate(halves):
+                    gens = trainer.step_generators(0, s, device, r)
+                    model.zero_grad(set_to_none=True)
+                    loss, m = loss_fn(half, True, sample_generator=gens[0],
+                                      dropout_generator=gens[1],
+                                      augment_generator=gens[2])
+                    loss.backward()
+                    ms.append({k: float(v) for k, v in m.items()})
+                    g = [p.grad.detach().clone() for p in model.parameters()]
+                    total = g if total is None else [
+                        a + b for a, b in zip(total, g)]
+                for p, g in zip(model.parameters(), total):
+                    p.grad = g / len(halves)
+                state.optimizer.step()
+                state.scheduler.step()
+                state.step += 1
+                metrics.append({k: float(np.mean([m[k] for m in ms]))
+                                for k in ms[0]})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return metrics, {k: v.detach().cpu()
+                     for k, v in model.state_dict().items()}
+
+
+def dp_gloo_report(device, small, setup, out_dir):
+    """(b): the two ranks' results held to each other, to the emulation
+    and, kernel against plain, to phase 11's tolerances."""
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    before = {k: v.detach().cpu() for k, v in
+              serving_model(small, seed=5).state_dict().items()}
+    for which in ("kernel", "plain"):
+        w0, w1 = (r[which]["weights"] for r in ranks)
+        check(all(torch.equal(w0[k], w1[k]) for k in w0),
+              f"dp gloo2 {which}: the ranks' weights differ")
+        check(ranks[0][which]["metrics"] == ranks[1][which]["metrics"],
+              f"dp gloo2 {which}: the ranks' metrics differ")
+    check(ranks[0]["rows"] != ranks[1]["rows"]
+          and len(ranks[0]["rows"]) == len(ranks[1]["rows"]),
+          f"dp gloo2: rows {ranks[0]['rows']} / {ranks[1]['rows']}")
+
+    def loss_err(a, b):
+        return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                   for x, y in zip(a, b) for k in y)
+
+    em_metrics, em_weights = dp_emulation(device, small, setup, ranks)
+    k0, p0 = ranks[0]["kernel"], ranks[0]["plain"]
+    err_em = loss_err(k0["metrics"], em_metrics)
+    check(err_em <= STEP_LOSS_RTOL,
+          f"dp gloo2 vs emulation: losses {k0['metrics']} / {em_metrics}")
+    vs_emulation = dict(loss_rel_err=err_em, **compare_updates(
+        k0["weights"], em_weights, before, "dp gloo2 vs emulation"))
+    err_kp = loss_err(k0["metrics"], p0["metrics"])
+    check(err_kp <= STEP_LOSS_RTOL,
+          f"dp gloo2 kernel vs plain: {k0['metrics']} / {p0['metrics']}")
+    vs_plain = dict(loss_rel_err=err_kp, **compare_updates(
+        k0["weights"], p0["weights"], before, "dp gloo2 kernel vs plain"))
+    launches = {k: sum(r["kernel"]["launches"][k] for r in ranks)
+                for k in k0["launches"]}
+    if device.type == "cuda":
+        for r in ranks:
+            for k, n in r["kernel"]["launches"].items():
+                check(n >= DP_STEPS, f"dp gloo2: {n} {k} launches a rank")
+    return dict(rows=[r["rows"] for r in ranks], metrics=k0["metrics"],
+                rank_s={w: [r[w]["s"] for r in ranks]
+                        for w in ("kernel", "plain")},
+                weights_equal_across_ranks=True, vs_emulation=vs_emulation,
+                kernel_vs_plain=vs_plain, launches=launches,
+                plain_launches={k: sum(r["plain"]["launches"][k]
+                                       for r in ranks)
+                                for k in k0["launches"]})
+
+
+def transfer_checks(device, small, fit_root):
+    """(c)'s checks of the form on the card, on phase 11's train set: a
+    batch's bytes packed and unpacked, the card's unpack against the CPU's
+    of the same buffer, and ``reconstruct_pcd`` against the packed cloud."""
+    from morefusion_tpu_torch import datasets
+    from morefusion_tpu_torch.training import transfer
+
+    cfg = FIT_SMALL if small else FIT_FULL
+    path = os.path.join(fit_root, "train")
+    check(datasets.has_transfer_arrays(path),
+          "transfer: phase 11 derived no transfer arrays")
+    idx = list(range(cfg["batch"]))
+    tf = datasets.Transform(train=False, with_occupancy=True)
+    classic = tf.batch(datasets.PackedPoseDataset(path).load_batch(idx))
+    packed_batch = tf.batch(datasets.PackedPoseDataset(
+        path, transfer=True).load_batch(idx))
+    schema = transfer.TransferSchema(packed_batch)
+    t0 = time.perf_counter()
+    buf = schema.pack(packed_batch)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    on_cpu = schema.unpack(torch.from_numpy(buf))
+    on_card = schema.unpack(torch.from_numpy(buf).to(device))
+    card_vs_cpu = {}
+    for k, v in on_cpu.items():
+        g = on_card[k].cpu()
+        same_nan = torch.equal(torch.isnan(g), torch.isnan(v)) \
+            if v.is_floating_point() else True
+        a, b = (g.nan_to_num(0), v.nan_to_num(0)) if v.is_floating_point() \
+            else (g, v)
+        card_vs_cpu[k] = dict(identical=bool(same_nan and torch.equal(a, b)),
+                              max_abs=float((a.double() - b.double()).abs()
+                                            .max()))
+        # bit-equal expected; the yuv420 arithmetic (three products in
+        # float32) may round otherwise on the card, within 1e-4 of 255
+        bound = 1e-4 * 255 if k == "rgb" else 0.0
+        check(same_nan and card_vs_cpu[k]["max_abs"] <= bound,
+              f"transfer: unpack of {k} on the card vs the CPU "
+              f"{card_vs_cpu[k]}")
+    # the rebuilt cloud of every train crop against the packed float32 one
+    z = torch.from_numpy(np.load(os.path.join(path, "z16.npy"))).to(device)
+    coef = torch.from_numpy(np.load(os.path.join(path, "pcd_coef.npy")))
+    pcd = torch.from_numpy(np.load(os.path.join(path, "pcd.npy"))).to(device)
+    rebuilt = transfer.reconstruct_pcd(z, coef.to(device))
+    valid = torch.isfinite(pcd).all(-1)
+    check(torch.equal(valid, torch.isfinite(rebuilt).all(-1)),
+          "transfer: the rebuilt cloud's holes differ from the packed one's")
+    err_mm = (rebuilt - pcd)[valid].norm(dim=-1) * 1e3
+    nbytes = dict(classic=int(sum(np.asarray(v).nbytes
+                                  for v in classic.values())),
+                  transfer_batch=int(sum(np.asarray(v).nbytes
+                                         for v in packed_batch.values())),
+                  packed=int(buf.nbytes))
+    return dict(batch=cfg["batch"], bytes=nbytes,
+                packed_over_classic=nbytes["packed"] / nbytes["classic"],
+                pack_ms=pack_ms, unpack_card_vs_cpu=card_vs_cpu,
+                reconstruct_err_mm=dict(mean=float(err_mm.mean()),
+                                        max=float(err_mm.max()),
+                                        points=int(valid.sum())))
+
+
+def dp_train_report(device, small, run, child_json, log_path):
+    info = read_json(child_json)
+    check(info["step"] == DP_TRAIN_STEPS and info["world_size"] == 1,
+          f"train under torchrun: {info}")
+    if device.type == "cuda":
+        check(info["backend"] == "nccl", f"train under torchrun: {info}")
+        for k, n in info["launches"].items():
+            check(n >= DP_TRAIN_STEPS, f"train under torchrun: {n} {k}")
+    timing = read_json(os.path.join(run, "timing.json"))
+    log = read_json(os.path.join(run, "log.json"))
+    losses = [r["main/loss"] for r in log if "main/loss" in r]
+    check(len(losses) == DP_TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train under torchrun: losses {losses}")
+    check(len(timing["pack_ms"]) >= DP_TRAIN_STEPS,
+          "train under torchrun: the transfer path packed no batch")
+    return dict(child=info, losses=losses,
+                batch_bytes=timing["batch_bytes"],
+                pack_ms=median(timing["pack_ms"]),
+                copy_ms=median(timing["copy_ms"]),
+                wait_ms=median(timing["wait_ms"]),
+                host_prep_ms=median(timing["host_prep_ms"]))
+
+
+def dp_segmenter(device, small, fit_root):
+    """(e) ``cli.train_segmentation`` at phase 13's arguments for
+    ``DP_SEG_STEPS`` steps under the group of this process: its step is the
+    DDP step (the spy sees the wrapper)."""
+    from morefusion_tpu_torch.cli import train_segmentation as seg_cli
+
+    cfg = REST_SMALL if small else REST_FULL
+    root = rest_root(fit_root)
+    out = os.path.join(root, "segmenter_dp")
+    argv = ["--out", out, "--n-frames", str(cfg["seg_frames"]),
+            "--n-val-frames", str(cfg["seg_val_frames"]), "--image-shape",
+            *map(str, cfg["seg_shape"]), "--n-objects",
+            *map(str, SEG_OBJECTS), "--batch-size", str(cfg["seg_batch"]),
+            "--widths", *map(str, cfg["seg_widths"]), "--seed",
+            str(SEG_SEED), "--fg-weight", str(SEG_FG_WEIGHT), "--steps",
+            str(DP_SEG_STEPS), "--device", device.type]
+    wrapped, losses = [], []
+    real = seg_cli.make_train_step
+
+    def spy(state, fg_weight=1.0, mesh=None):
+        step = real(state, fg_weight=fg_weight, mesh=mesh)
+        wrapped.append(step.ddp is not None)
+
+        def timed(small_batch):
+            loss = step(small_batch)
+            losses.append(float(loss))
+            return loss
+
+        return timed
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {
+            "MFTPU_SEG_CACHE": os.path.join(root, "segcache")}), \
+            mock.patch.object(seg_cli, "make_train_step", spy):
+        (state, summary), _ = quiet(seg_cli.main, argv)
+    wall_s = time.perf_counter() - t0
+    check(wrapped == [True] and state.step == DP_SEG_STEPS
+          and np.isfinite(losses).all(),
+          f"segmenter dp: wrapped {wrapped}, step {state.step}, {losses}")
+    check(np.isfinite(summary["validation/miou"]),
+          f"segmenter dp: {summary}")
+    return dict(steps=state.step, losses=losses, wall_s=wall_s,
+                miou=summary["validation/miou"])
+
+
+def phase_data_parallel(device, small, counts, fit_root, setup, profiles):
+    """Phase 17: data parallelism, (a) to (e)."""
+    import shutil
+
+    from morefusion_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    root = os.path.join(fit_root, "dp")
+    os.makedirs(root, exist_ok=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    flag = ["--small"] if small else []
+    # (b) and (c) start first: their processes take a while to reach the
+    # card, while (a)'s comparison runs here
+    port = parallel.distributed.free_port()
+    ranks = [start_child(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank-child",
+         str(r), "2", str(port), root] + flag,
+        os.path.join(root, f"rank{r}.log")) for r in range(2)]
+    cfg = FIT_SMALL if small else FIT_FULL
+    run = os.path.join(root, "train_torchrun")
+    child_json = os.path.join(root, "train_child.json")
+    argv = ["--out", run, "--data", os.path.join(fit_root, "train"),
+            "--val-data", os.path.join(fit_root, "val"), "--with-occupancy",
+            "--loss", "add/add_s+occupancy", "--batch-size",
+            str(cfg["batch"]), "--val-batch-size", str(cfg["val_batch"]),
+            "--max-steps", str(DP_TRAIN_STEPS), "--eval-interval", "1000",
+            "--log-interval", "1", "--min-visibility",
+            str(FIT_MIN_VISIBILITY), "--device", device.type]
+    if small:
+        argv += ["--tiny", "--n-point", "64"]
+    trainer_proc = start_child(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", os.path.abspath(__file__),
+         "--train-child", child_json] + flag + ["--"] + argv,
+        os.path.join(root, "train.log"))
+
+    made = parallel.distributed.initialize_single(device.type)
+    try:
+        check(made, "dp: a process group was already initialized")
+        t = time.perf_counter()
+        single, runs, batch_dev = dp_single(device, small, counts, setup)
+        seconds["a_compare"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for i, proc in enumerate(ranks):
+            wait_child(proc, os.path.join(root, f"rank{i}.log"),
+                       f"dp rank {i}")
+        wait_child(trainer_proc, os.path.join(root, "train.log"),
+                   "train under torchrun")
+        seconds["b_c_children_wait"] = time.perf_counter() - t
+        t = time.perf_counter()
+        single["timing"] = dp_timing(device, runs, batch_dev)
+        del runs, batch_dev
+        seconds["a_timing"] = time.perf_counter() - t
+        t = time.perf_counter()
+        gloo = dp_gloo_report(device, small, setup, root)
+        seconds["b_report"] = time.perf_counter() - t
+        t = time.perf_counter()
+        train = dp_train_report(device, small, run, child_json,
+                                os.path.join(root, "train.log"))
+        train["form"] = transfer_checks(device, small, fit_root)
+        seconds["c_report"] = time.perf_counter() - t
+        t = time.perf_counter()
+        seg = dp_segmenter(device, small, fit_root)
+        seconds["e_segmenter"] = time.perf_counter() - t
+    finally:
+        for proc, log in ranks + [trainer_proc]:  # none is left running
+            kill_child(proc)
+            log.close()
+        if made:
+            torch.distributed.destroy_process_group()
+    shutil.rmtree(root)
+    seconds["total"] = time.perf_counter() - t_phase
+    emit(dict(phase="data_parallel", ok=True, device=str(device),
+              model=("SingleView3D occ, full width, fp32, TF32 off"
+                     if not small else "tiny"),
+              batch=int(len(setup[3]["rgb"])),
+              dp_step_ws1=single, dp_step_gloo2=gloo,
+              train_torchrun=train, profile_train=profiles,
+              segmenter_dp=seg, seconds=seconds,
+              tolerance=dict(
+                  ws1_vs_bare="identical expected, else phase 6's "
+                              "kernel-vs-plain",
+                  gloo2_vs_emulation=dict(loss_rtol=STEP_LOSS_RTOL,
+                                          update_rtol=STEP_GRAD_RTOL,
+                                          update_of_whole=STEP_GRAD_TOTAL),
+                  gloo2_kernel_vs_plain="phase 11's, as above",
+                  unpack_card_vs_cpu="identical; rgb within 1e-4 of 255")))
+    return dict(dp_step_ws1=single["launches"], dp_step_gloo2=gloo["launches"],
+                train_transfer=train["child"]["launches"])
 
 
 # ------------------------------------------------------------------ main
@@ -5511,6 +6255,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cpu: rehearse at a reduced size, no card")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in ("--dp-rank-child", "--train-child"):
+        return child_main(argv)  # a process of phase 17
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5551,6 +6298,7 @@ def main(argv=None):
     try:
         return run_phases(device, small, counts, native_build, fit_dir.name)
     finally:
+        stop_background()
         fit_dir.cleanup()
 
 
@@ -5588,13 +6336,20 @@ def run_phases(device, small, counts, native_build, fit_root):
                                          frames, model16)
     fit_launches, fit_bf16_launches = phase_fit(
         device, small, counts, fit_data_info, fit_root, bare_step_ms)
-    eval_launches = phase_evaluation(device, small, counts, fit_root)
+    eval_launches, finish_eval = phase_evaluation(device, small, counts,
+                                                  fit_root)
     textured_launches, posenet_launches, trained_seg_launches = phase_rest(
         device, small, counts, fit_root, rest_data_info, setup,
         scene_models, frames, model16)
-    p14, occupancy = phase_replay_and_tools(device, small, counts, fit_root)
+    p14, occupancy, finish_replay = phase_replay_and_tools(
+        device, small, counts, fit_root)
     p15 = phase_robot(device, small, counts, fit_root, frames)
     p16 = phase_data_side(device, small, counts, fit_root, ycb_data_info)
+    p17 = phase_data_parallel(device, small, counts, fit_root, setup,
+                              p16["profile_train_steps"])
+    # the CPU's sides of phases 12 and 14, run beside the later phases
+    finish_eval()
+    finish_replay()
     # the first shape is align_occupancy_grids' (its defaults)
     occ_timing = next(iter(occupancy["grids"].values()))
 
@@ -5615,7 +6370,8 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + sum(p15.values())
                   + sum(p16[k]["min_dist_voxels"] for k in (
                       "ycb_fit", "profile_train", "profile_backward",
-                      "geometry_nn"))),
+                      "geometry_nn"))
+                  + sum(v["min_dist_voxels"] for v in p17.values())),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -5642,7 +6398,9 @@ def run_phases(device, small, counts, native_build, fit_root):
                               profile_train=p16["profile_train"][
                                   "min_dist_voxels"],
                               profile_backward=p16["profile_backward"][
-                                  "min_dist_voxels"]),
+                                  "min_dist_voxels"],
+                              **{k: v["min_dist_voxels"]
+                                 for k, v in p17.items()}),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -5673,7 +6431,8 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + p14["align_pointclouds"]["nn_indices"]
                   + sum(p16[k]["nn_indices"] for k in (
                       "ycb_fit", "profile_train", "profile_backward",
-                      "geometry_nn"))),
+                      "geometry_nn"))
+                  + sum(v["nn_indices"] for v in p17.values())),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
@@ -5692,7 +6451,9 @@ def run_phases(device, small, counts, native_build, fit_root):
                                   "nn_indices"],
                               profile_backward=p16["profile_backward"][
                                   "nn_indices"],
-                              geometry_nn=p16["geometry_nn"]["nn_indices"]),
+                              geometry_nn=p16["geometry_nn"]["nn_indices"],
+                              **{k: v["nn_indices"]
+                                 for k, v in p17.items()}),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

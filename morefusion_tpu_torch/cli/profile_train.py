@@ -10,18 +10,19 @@ synthetic batch at the real shapes (``make_batch``: B = 16, 256^2, 1000
 points, 32^3 grids; no dataset needed) it times:
 
 - the full train step (the occupancy branch, ADD-S loss, no occupancy
-  loss term) in fp32 and in bf16 compute, with the time of its first call;
+  loss term) in fp32 and in bf16 compute, with the time of its first call:
+  the data-parallel step (``make_dp_train_step`` under a process group of
+  this one process, ``nccl`` on the card, ``gloo`` on the CPU; DDP's
+  gradient all-reduce included) as the JAX script times
+  ``make_dp_train_step``, and beside it the bare single-device step
+  (``make_train_step``), in turns, so that DDP's own cost shows;
 - the forward alone, in both dtypes;
 - the 2D backbone (ResNet + PSPNet), forward and forward + backward; the
   voxel branch (voxelization, 3D convs, interpolation), forward and
   forward + backward; the pose towers, forward; the ADD(-S) loss, forward.
 
-The JAX script runs ``make_dp_train_step`` on a one-device mesh, whose
-``psum`` over one device is the identity: that is the single-device step,
-which this port runs (``training.trainer.make_train_step``) until data
-parallelism is ported.
-
-Each time is the mean of ``--steps`` calls queued back to back: ``ms`` by
+Each time is the mean of ``--steps`` calls queued back to back (a train
+step's: of two turns of half as many, in turns with the other step): ``ms`` by
 CUDA events around them (None on the CPU) and ``host_ms`` by the host
 clock from the first call to a synchronise after the last. The FLOP count
 replaces XLA's cost analysis: ``torch.utils.flop_counter.FlopCounterMode``
@@ -169,12 +170,15 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
+    from .. import parallel
     from ..datasets import ProceduralModels
     from ..models import losses as losses_module
     from ..models.heads import select_class
     from ..training import trainer as trainer_module
 
     device = torch.device(args.device)
+    made_group = parallel.distributed.initialize_single(args.device)
+    mesh = parallel.data_mesh(args.device)
     card = card_name(device)
     print("device:", device, card, "| tf32 convs / matmul:",
           torch.backends.cudnn.allow_tf32,
@@ -183,14 +187,18 @@ def main(argv=None):
     batch = to_device(make_batch(B, S, S), device)
     bank = trainer_module.CadPointBank.build(
         ProceduralModels(), N_FG_CLASS, device=device)
-    results, first_call_s = {}, {}
+    results, bare, first_call_s = {}, {}, {}
     flops = None
 
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         model = build_model(args.tiny, dtype, device)
         state = trainer_module.create_train_state(model)
-        step = trainer_module.make_train_step(
-            model, bank, occupancy_loss_term=False)
+        steps = dict(
+            dp=trainer_module.make_dp_train_step(
+                model, bank, mesh, occupancy_loss_term=False),
+            bare=trainer_module.make_train_step(
+                model, bank, occupancy_loss_term=False))
+        step = steps["dp"]
 
         t0 = time.perf_counter()
         _, metrics = step(state, batch, True)
@@ -200,11 +208,19 @@ def main(argv=None):
         if name == "fp32":
             flops = count_flops(lambda: step(state, batch, True))
 
-        results[f"train_step_{name}"] = r = timeit(
-            lambda: step(state, batch, True), device, args.steps)
-        dt = (r["ms"] or r["host_ms"]) / 1e3
-        print(f"[{name}] train step: {dt * 1e3:.1f} ms "
-              f"({B / dt:.1f} samples/s)", flush=True)
+        timed = {"dp": [], "bare": []}
+        for kind in ("dp", "bare", "bare", "dp"):  # in turns
+            timed[kind].append(timeit(
+                lambda: steps[kind](state, batch, True), device,
+                max(args.steps // 2, 1)))
+        for kind, out in (("dp", results), ("bare", bare)):
+            out[f"train_step_{name}"] = r = {
+                k: None if timed[kind][0][k] is None
+                else (timed[kind][0][k] + timed[kind][1][k]) / 2
+                for k in ("ms", "host_ms")}
+            dt = (r["ms"] or r["host_ms"]) / 1e3
+            print(f"[{name}] {kind} train step: {dt * 1e3:.1f} ms "
+                  f"({B / dt:.1f} samples/s)", flush=True)
 
         generator = torch.Generator(device=device).manual_seed(0)
 
@@ -221,7 +237,7 @@ def main(argv=None):
         results[f"fwd_{name}"] = r = timeit(fwd, device, args.steps)
         print(f"[{name}] forward only: {(r['ms'] or r['host_ms']):.1f} ms",
               flush=True)
-        del model, state, step
+        del model, state, step, steps
 
     # ---- the stages, of the fp32 model ----
     model = build_model(args.tiny, torch.float32, device)
@@ -295,13 +311,19 @@ def main(argv=None):
     for k, v in results.items():
         print(f"{k:24s} {(v['ms'] or v['host_ms']):8.1f} "
               f"(host {v['host_ms']:.1f})")
+    for k, v in bare.items():
+        print(f"{'bare_' + k:24s} {(v['ms'] or v['host_ms']):8.1f} "
+              f"(host {v['host_ms']:.1f}; without DDP)")
 
     dt = results["train_step_fp32"]
     dt = (dt["ms"] or dt["host_ms"]) / 1e3
     print(f"\nstep flops (FlopCounterMode: matmuls and convolutions): "
           f"{flops / 1e9:.1f} G")
     print(f"achieved: {flops / dt / 1e12:.2f} TFLOP/s on {card}")
-    return dict(results=results, first_call_s=first_call_s,
+    if made_group:
+        parallel.distributed.dist.destroy_process_group()
+    return dict(results=results, bare_results=bare,
+                first_call_s=first_call_s,
                 step_flops=flops, tflops_per_s=flops / dt / 1e12,
                 card=card)
 

@@ -1,14 +1,18 @@
 """Train the volumetric pose model (the SingleView3D recipe) with the port.
 
     python -m morefusion_tpu_torch.cli.train --out RUN_DIR [--data DIR ...]
+    torchrun --nproc_per_node N -m morefusion_tpu_torch.cli.train ...
 
 The flags of ``examples/train.py`` (Adam 1e-4, batch 16, 30 epochs,
 ``add -> add/add_s`` after epoch 1, evaluation every 0.25 epoch, snapshots
 latest / best ADD / best AUC), plus ``--device`` (default ``cuda``),
-``--log-interval`` and ``--val-batch-size``. ``--data`` takes packed or
-reindexed directories (several are concatenated); a packed set does the
-photometric and point-cloud augmentation on the device, a reindexed one on
-the host.
+``--log-interval`` and ``--val-batch-size``. Under ``torchrun`` the run is
+data parallel over its processes, one card each (``--batch-size`` is the
+global batch). ``--data`` takes packed or reindexed directories (several
+are concatenated); a packed set does the photometric and point-cloud
+augmentation on the device, a reindexed one on the host, and a packed set
+ships its batches in the single-buffer transfer form (its transfer arrays
+are derived first where missing), as does a packed val set.
 Without ``--data`` a small synthetic set (16 / 4 frames) is generated
 under ``--out``. ``--model posenet`` trains the point-cloud baseline
 (``models.PoseNet`` at full width; ``--tiny`` and ``--bf16`` apply to
@@ -103,17 +107,19 @@ def parse_args(argv=None):
 
 def build_datasets(args):
     """(train, val, device_augment) from the arguments."""
-    from .. import datasets
+    from .. import datasets, parallel
 
     if not args.data:
         print("no --data: generating a small synthetic set inline")
         train_dir = os.path.join(args.out, "data_train")
         val_dir = os.path.join(args.out, "data_val")
         for split, path, n in (("train", train_dir, 16), ("val", val_dir, 4)):
-            if not os.path.exists(os.path.join(path, "meta.json")):
+            if (parallel.is_primary()  # the other ranks wait below
+                    and not os.path.exists(os.path.join(path, "meta.json"))):
                 src = datasets.SyntheticRGBDPoseEstimationDataset(
                     split=split, n_frames=n, n_objects=(2, 4))
                 datasets.reindex(path, [src], n_workers=1)
+        parallel.barrier()
         train = datasets.RGBDPoseEstimationDatasetReIndexed(
             train_dir, split="train", augmentation=True)
         val = datasets.RGBDPoseEstimationDatasetReIndexed(
@@ -123,9 +129,12 @@ def build_datasets(args):
     def build_train(path):
         if datasets.is_packed(path):
             # the host does the mask truncation only; the photometric and
-            # point-cloud augmentation runs in the step
+            # point-cloud augmentation runs in the step, and the batch
+            # ships as one packed buffer (training/transfer.py)
+            if not datasets.has_transfer_arrays(path):
+                datasets.derive_transfer_arrays(path)
             return datasets.PackedPoseDataset(
-                path, split="train", augmentation=True,
+                path, split="train", augmentation=True, transfer=True,
                 min_visibility=args.min_visibility)
         return datasets.RGBDPoseEstimationDatasetReIndexed(
             path, split="train", augmentation=True,
@@ -143,7 +152,10 @@ def build_datasets(args):
     print("train sources:", [len(s) for s in sources])
     val_path = args.val_data or args.data[0]
     if datasets.is_packed(val_path):
-        val = datasets.PackedPoseDataset(val_path, split="val")
+        if not datasets.has_transfer_arrays(val_path):
+            datasets.derive_transfer_arrays(val_path)
+        val = datasets.PackedPoseDataset(val_path, split="val",
+                                         transfer=True)
     else:
         val = datasets.RGBDPoseEstimationDatasetReIndexed(val_path,
                                                           split="val")
@@ -173,10 +185,13 @@ def learning_rate(args, n_train: int):
 def main(argv=None):
     """Run the training; returns (state, the last evaluation's summary)."""
     args = parse_args(argv)
-    from .. import models
+    from .. import models, parallel
     from ..datasets import ProceduralModels, Transform
     from ..training import loop
 
+    # a no-op outside torchrun
+    parallel.maybe_initialize(backend="gloo" if args.device == "cpu"
+                              else None)
     n_fg_class = 21
     with_occupancy = args.with_occupancy or "occupancy" in args.loss
     train_ds, val_ds, device_augment = build_datasets(args)

@@ -2,6 +2,7 @@
 
     python -m morefusion_tpu_torch.cli.train_segmentation --out DIR \\
         [--n-frames 800] [--steps 4000] [--use-depth] [--device cuda]
+    torchrun --nproc_per_node N -m morefusion_tpu_torch.cli.train_segmentation ...
 
 The flags of ``examples/train_segmentation.py``, plus ``--device`` (default
 ``cuda``). A UNet predicts per-pixel class logits and, unless
@@ -90,10 +91,14 @@ def quantize_batch(batch, use_depth: bool):
     return small
 
 
-def make_loss_fn(model, fg_weight: float = 1.0):
+def make_loss_fn(model, fg_weight: float = 1.0, forward=None):
     """``loss_fn(small_batch) -> (loss, (class loss, boundary loss))`` on
-    a batch of ``quantize_batch``, cast back on the model's device."""
+    a batch of ``quantize_batch``, cast back on the model's device;
+    ``forward`` is the module that runs the forward (a DDP wrapper of
+    ``model``; default ``model``)."""
     from ..models.segmentation import boundary_loss, segmentation_loss
+
+    forward = model if forward is None else forward
 
     def loss_fn(small):
         device = next(model.parameters()).device
@@ -101,7 +106,7 @@ def make_loss_fn(model, fg_weight: float = 1.0):
         kw = {}
         if model.use_depth:
             kw["depth"] = b["depth"].to(torch.float32)
-        out = model(b["rgb"].to(torch.float32), **kw)
+        out = forward(b["rgb"].to(torch.float32), **kw)
         labels = b["class_label"].to(torch.int32)
         if model.with_boundary:
             logits, blog = out
@@ -114,10 +119,16 @@ def make_loss_fn(model, fg_weight: float = 1.0):
     return loss_fn
 
 
-def make_train_step(state, fg_weight: float = 1.0):
+def make_train_step(state, fg_weight: float = 1.0, mesh=None):
     """``train_step(small_batch) -> loss`` (a detached device scalar): one
-    Adam step of ``state`` (a ``training.TrainState``)."""
-    loss_fn = make_loss_fn(state.model, fg_weight)
+    Adam step of ``state`` (a ``training.TrainState``) on this rank's
+    batch; under a process group (``mesh`` of ``parallel.data_mesh``) the
+    forward runs under DDP, which averages the gradients over the ranks,
+    and the loss returned is the ranks' mean."""
+    from ..training.trainer import all_reduce_mean, wrap_ddp
+
+    ddp = wrap_ddp(state.model, mesh)
+    loss_fn = make_loss_fn(state.model, fg_weight, forward=ddp)
 
     def train_step(small):
         state.optimizer.zero_grad(set_to_none=True)
@@ -126,8 +137,9 @@ def make_train_step(state, fg_weight: float = 1.0):
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return loss.detach()
+        return all_reduce_mean({"loss": loss.detach()}, mesh)["loss"]
 
+    train_step.ddp = ddp
     return train_step
 
 
@@ -204,14 +216,17 @@ def per_class_name(args) -> str:
 def main(argv=None):
     """Train and evaluate; returns (state, the evaluation's summary)."""
     args = parse_args(argv)
-    from .. import training
+    from .. import parallel, training
     from ..datasets.instance_segmentation import (
         SyntheticInstanceSegmentationDataset,
     )
     from ..datasets.rgbd_pose_estimation.augmentation import augment_rgb
     from ..models.segmentation import UNetSegmentation
 
-    device = torch.device(args.device)
+    parallel.maybe_initialize(backend="gloo" if args.device == "cpu"
+                              else None)  # a no-op outside torchrun
+    mesh = parallel.data_mesh(args.device)
+    primary = parallel.is_primary()
     ds = SyntheticInstanceSegmentationDataset(
         split="train",
         n_frames=args.n_frames,
@@ -229,35 +244,41 @@ def main(argv=None):
             ).astype(np.float32))
         return ex
 
-    loader = training.BatchLoader(ds, args.batch_size, transform,
-                                  shuffle=True)
+    loader = training.BatchLoader(
+        ds, args.batch_size, transform, shuffle=True,
+        shard=parallel.local_batch_slice(args.batch_size, mesh))
     torch.manual_seed(args.seed)
     model = UNetSegmentation(n_class=22, widths=tuple(args.widths),
                              with_boundary=not args.no_boundary,
-                             use_depth=args.use_depth).to(device)
+                             use_depth=args.use_depth).to(mesh.device)
     state = training.create_train_state(model, args.lr)
-    train_step = make_train_step(state, fg_weight=args.fg_weight)
 
-    log = training.LogReport(args.out)
-    if not args.eval_only:  # keep the training run's args.json intact
+    log = training.LogReport(args.out) if primary else None
+    if not args.eval_only and primary:  # keep a training run's args.json
         training.write_args(args.out, vars(args))
-    ckpt = training.CheckpointManager(args.out)
+    ckpt = training.CheckpointManager(args.out) if primary else None
     if args.eval_only:
-        if ckpt.restore_latest(state) is None:
+        if primary and ckpt.restore_latest(state) is None:
             raise SystemExit(f"--eval-only: no checkpoint under {args.out}")
         args.steps = 0
+    else:
+        train_step = make_train_step(state, fg_weight=args.fg_weight,
+                                     mesh=mesh)
 
     k = 0
     while k < args.steps:
         for batch in loader:
             loss = train_step(quantize_batch(batch, args.use_depth))
             k += 1
-            if k % 50 == 0:
+            if k % 50 == 0 and primary:
                 value = float(loss)
                 log.report({"main/loss": value}, step=k)
                 print(f"step {k}: loss={value:.4f}", flush=True)
             if k >= args.steps:
                 break
+    parallel.barrier()
+    if not primary:  # rank 0 alone saves and evaluates
+        return state, {}
     if not args.eval_only:
         ckpt.save_latest(state, k)
 

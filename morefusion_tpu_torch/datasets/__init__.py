@@ -17,6 +17,8 @@ from .instance_segmentation import SyntheticInstanceSegmentationDataset
 from .instance_segmentation import frame_to_class_label
 from .instance_segmentation import frame_to_masks
 from .packed import PackedPoseDataset
+from .packed import derive_transfer_arrays
+from .packed import has_transfer_arrays
 from .packed import is_packed
 from .packed import pack_reindexed
 from .procedural import ProceduralModels

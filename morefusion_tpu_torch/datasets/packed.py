@@ -1,7 +1,6 @@
 """Packed memory-mapped training store: the fast host input path.
 
-Own copy of ``morefusion_tpu/datasets/packed.py`` without its transfer
-form. A reindexed directory is materialized once into flat preallocated
+Own copy of ``morefusion_tpu/datasets/packed.py``. A reindexed directory is materialized once into flat preallocated
 ``.npy`` arrays; training then reads batches by fancy indexing into
 page-cached memmaps: no decode, no per-example Python, one copy per array
 per batch.
@@ -22,21 +21,25 @@ Probability grids are thresholded at pack time: the training transform's
 first move is exactly that threshold, and the model never sees the raw
 probabilities.
 
-The JAX package's transfer form (``z16.npy`` + ``pcd_coef.npy``, one
-compressed buffer a batch for a slow host link, ``training/transfer.py``)
-is not ported: ``transfer=True`` and ``derive_transfer_arrays`` raise.
+The transfer form adds ``z16.npy`` (N, 256, 256) float16 and
+``pcd_coef.npy`` (N, 4) float32 (``derive_transfer_arrays``): with
+``transfer=True`` a batch carries the depth and the affine coefficients of
+its cloud in place of the float32 cloud, and ships to the device as one
+packed buffer (``training/transfer.py``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ..parallel import distributed
 from .base import DatasetBase
-from .rgbd_pose_estimation.augmentation import augment_mask
+from .rgbd_pose_estimation.augmentation import augment_mask, augment_mask_z
 
 _GRID_KEYS = (
     "grid_target",
@@ -46,10 +49,6 @@ _GRID_KEYS = (
 )
 _SCALAR_KEYS = (
     "class_id", "quaternion_true", "translation_true", "origin", "pitch",
-)
-TRANSFER_NOT_PORTED = (
-    "the packed transfer form (training/transfer.py) is not ported; "
-    "ROADMAP.md queue 1, item 4"
 )
 
 
@@ -125,8 +124,53 @@ def is_packed(root_dir: str) -> bool:
     return os.path.exists(os.path.join(root_dir, "scalars.npz"))
 
 
+def has_transfer_arrays(root_dir: str) -> bool:
+    return (os.path.exists(os.path.join(root_dir, "z16.npy"))
+            and os.path.exists(os.path.join(root_dir, "pcd_coef.npy")))
+
+
 def derive_transfer_arrays(root_dir: str, chunk: int = 256, progress=True):
-    raise NotImplementedError(TRANSFER_NOT_PORTED)
+    """Write the transfer form of the packed cloud: ``z16.npy`` (N, H, W)
+    float16 and ``pcd_coef.npy`` (N, 4) float32 (``transfer.fit_pcd_coefs``)
+    beside the packed arrays, in one pass over ``pcd.npy``; returns the
+    coefficients.
+
+    Atomic: both arrays are written under ``.tmp`` names and renamed into
+    place when complete, the coefficients first, so an interrupted derive
+    never leaves a ``z16.npy`` that ``has_transfer_arrays`` accepts. Under
+    a process group of several ranks only rank 0 derives; the others wait
+    for the rename.
+    """
+    from ..training.transfer import fit_pcd_coefs
+
+    if distributed.world_size() > 1 and not distributed.is_primary():
+        while not has_transfer_arrays(root_dir):
+            time.sleep(1.0)
+        return np.load(os.path.join(root_dir, "pcd_coef.npy"))
+
+    pcd = np.load(os.path.join(root_dir, "pcd.npy"), mmap_mode="r")
+    n, H, W = pcd.shape[:3]
+    z16_tmp = os.path.join(root_dir, "z16.npy.tmp")
+    coef_tmp = os.path.join(root_dir, "pcd_coef.npy.tmp")
+    z16 = np.lib.format.open_memmap(z16_tmp, mode="w+", dtype=np.float16,
+                                    shape=(n, H, W))
+    coef = np.zeros((n, 4), np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        block = np.asarray(pcd[lo:hi])
+        z16[lo:hi] = block[..., 2]
+        coef[lo:hi] = fit_pcd_coefs(block)
+        if progress and (lo // chunk) % 8 == 0:
+            print(f"derive_transfer: {hi}/{n}")
+    z16.flush()
+    del z16
+    with open(coef_tmp, "wb") as f:
+        np.save(f, coef)
+    # the coefficients first: has_transfer_arrays wants both files, and
+    # z16.npy is the one a concurrent open would memmap
+    os.rename(coef_tmp, os.path.join(root_dir, "pcd_coef.npy"))
+    os.rename(z16_tmp, os.path.join(root_dir, "z16.npy"))
+    return coef
 
 
 class PackedPoseDataset(DatasetBase):
@@ -134,7 +178,9 @@ class PackedPoseDataset(DatasetBase):
 
     ``get_example`` matches the npz ReIndexed loader contract (so the
     transforms and evaluators work unchanged); ``load_batch`` is the
-    vectorized fast path used by the batch loader.
+    vectorized fast path used by the batch loader. With ``transfer`` a
+    batch holds ``z`` (float16) and ``pcd_coef`` in place of ``pcd``
+    (``get_example`` still rebuilds the cloud).
     """
 
     supports_load_batch = True
@@ -149,14 +195,16 @@ class PackedPoseDataset(DatasetBase):
         seed: int = 0,
         transfer: bool = False,
     ):
-        if transfer:
-            raise NotImplementedError(TRANSFER_NOT_PORTED)
         if not is_packed(root_dir):
             raise IOError(f"{root_dir} is not a packed dataset")
+        if transfer and not has_transfer_arrays(root_dir):
+            raise IOError(f"{root_dir} has no transfer arrays "
+                          "(run derive_transfer_arrays first)")
         self._root_dir = root_dir
         self._split = split
         self._augmentation = augmentation
         self._rng = np.random.RandomState(seed)
+        self._transfer = transfer
 
         sc = np.load(os.path.join(root_dir, "scalars.npz"))
         self._scalars = {k: sc[k] for k in sc.files}
@@ -164,6 +212,11 @@ class PackedPoseDataset(DatasetBase):
             k: np.load(os.path.join(root_dir, f"{k}.npy"), mmap_mode="r")
             for k in ("rgb", "pcd") + _GRID_KEYS + ("grid_nontarget_full",)
         }
+        if transfer:
+            del self._mm["pcd"]  # z16 + the coefficients replace the cloud
+            self._mm["z"] = np.load(os.path.join(root_dir, "z16.npy"),
+                                    mmap_mode="r")
+            self._coef = np.load(os.path.join(root_dir, "pcd_coef.npy"))
 
         keep = self._scalars["visibility"] >= min_visibility
         if class_ids:
@@ -180,21 +233,40 @@ class PackedPoseDataset(DatasetBase):
 
     def load_batch(self, indices) -> dict:
         """Raw stacked batch (bool grids; rgb uint8) by fancy indexing,
-        with the mask truncation of ``augment_mask`` per example when
-        ``augmentation`` (the photometric part runs in the train step)."""
+        with the mask truncation of ``augment_mask`` (``augment_mask_z``
+        in the transfer form) per example when ``augmentation`` (the
+        photometric part runs in the train step)."""
         idx = self._indices[np.asarray(indices, dtype=np.int64)]
         batch = {k: np.asarray(m[idx]) for k, m in self._mm.items()}
         for k in _SCALAR_KEYS:
             batch[k] = self._scalars[k][idx]
+        if self._transfer:
+            batch["pcd_coef"] = self._coef[idx].copy()
         if self._augmentation:
-            rgbs, pcds = batch["rgb"], batch["pcd"]
-            for b in range(len(idx)):
-                rgbs[b], pcds[b] = augment_mask(rgbs[b], pcds[b], self._rng)
+            rgbs = batch["rgb"]
+            if self._transfer:
+                zs, coefs = batch["z"], batch["pcd_coef"]
+                for b in range(len(idx)):
+                    rgbs[b], zs[b], coefs[b] = augment_mask_z(
+                        rgbs[b], zs[b], coefs[b], self._rng)
+            else:
+                pcds = batch["pcd"]
+                for b in range(len(idx)):
+                    rgbs[b], pcds[b] = augment_mask(rgbs[b], pcds[b],
+                                                    self._rng)
         return batch
 
     def get_example(self, index):
         batch = self.load_batch([index])
         ex = {k: v[0] for k, v in batch.items()}
+        if self._transfer:
+            # the npz loader's contract wants the organized cloud
+            z = ex.pop("z").astype(np.float32)
+            a, b, c, d = ex.pop("pcd_coef")
+            H, W = z.shape
+            x = z * (a + b * np.arange(W, dtype=np.float32))
+            y = z * (c + d * np.arange(H, dtype=np.float32)[:, None])
+            ex["pcd"] = np.stack([x, y, z], axis=-1)
         ex["class_id"] = int(ex["class_id"])
         ex["pitch"] = np.float32(ex["pitch"])
         # npz-loader contract: float probability grids, int full grids

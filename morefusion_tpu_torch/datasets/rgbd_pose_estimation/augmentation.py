@@ -2,11 +2,10 @@
 
 Own copy of ``morefusion_tpu/datasets/rgbd_pose_estimation/
 augmentation.py`` (``augment_rgb``, ``augment_pcd``, ``augment_mask``,
-``augment_rgbd``): RGB contrast / HSV / Gaussian blur / resolution
-degradation; PCD dropout + Gaussian noise; mask truncation (random bbox
-shifts + contour selection). ``augment_mask_z`` belongs to the packed
-transfer path, which the port does not have. cv2 is imported inside each
-function.
+``augment_mask_z``, ``augment_rgbd``): RGB contrast / HSV / Gaussian blur /
+resolution degradation; PCD dropout + Gaussian noise; mask truncation
+(random bbox shifts + contour selection), also of the transfer form's depth
+and affine coefficients. cv2 is imported inside each function.
 """
 
 from __future__ import annotations
@@ -136,6 +135,56 @@ def augment_mask(rgb, pcd, rng: np.random.RandomState):
         pcd[y1:y2, x1:x2], (H, W), cval=np.nan, interpolation="nearest"
     )
     return rgb, pcd
+
+
+def augment_mask_z(rgb, z, coef, rng: np.random.RandomState):
+    """``augment_mask`` for the transfer form: depth ``z`` (float16) and the
+    affine coefficients of its cloud (``x = z (a + b j)``, ``y = z (c +
+    d i)``, ``training/transfer.py``).
+
+    The same truncation and recentring draw, applied to the depth image;
+    the coefficients follow the recentring's remap analytically (output
+    pixel j' samples source column j = x1 + (j' - x0) / s), so the cloud
+    rebuilt on the device matches the augmented crop.
+    """
+    H, W = z.shape
+    z_dtype = z.dtype
+    mask = np.isfinite(z)
+    orig_count = mask.sum()
+    if orig_count == 0:
+        return rgb, z, coef
+    new_mask = _truncate_mask(mask, rng)
+    if new_mask.sum() < max(64, 0.05 * orig_count):
+        return rgb, z, coef
+    mask = new_mask
+
+    rgb = rgb.copy()
+    z = z.astype(np.float32)  # cv2 has no float16 path
+    rgb[~mask] = 0
+    z[~mask] = np.nan
+
+    if not mask.any():
+        return rgb, z.astype(z_dtype), coef
+    bbox = masks_to_bboxes(mask[None])[0]
+    y1, x1, y2, x2 = bbox.round().astype(int)
+    ch, cw = y2 - y1, x2 - x1
+    if ch * cw == 0:
+        return rgb, z.astype(z_dtype), coef
+    rgb = centerize(rgb[y1:y2, x1:x2], (H, W))
+    z = centerize(
+        z[y1:y2, x1:x2], (H, W), cval=np.nan, interpolation="nearest"
+    )
+    # centerize's placement (extra/image.py)
+    s = min(H / ch, W / cw)
+    h, w = max(1, int(round(ch * s))), max(1, int(round(cw * s)))
+    y0, x0 = (H - h) // 2, (W - w) // 2
+    sw, sh = w / cw, h / ch  # the per-axis scales after rounding
+    a, b, c, d = [float(v) for v in coef]
+    coef = np.array(
+        [a + b * (x1 - x0 / sw), b / sw, c + d * (y1 - y0 / sh), d / sh],
+        np.float32,
+    )
+    return rgb, z.astype(z_dtype), coef
 
 
 def augment_rgbd(rgb, pcd, rng: np.random.RandomState):

@@ -150,7 +150,8 @@ class Transform:
         out = dict(batch)
         out["class_id"] = np.asarray(batch["class_id"], np.int32)
         for k in ("pcd", "quaternion_true", "translation_true", "origin"):
-            out[k] = np.asarray(batch[k], np.float32)
+            if k in batch:  # "pcd" is absent in the transfer form
+                out[k] = np.asarray(batch[k], np.float32)
         out["pitch"] = np.asarray(batch["pitch"], np.float32)
 
         if not self._with_occupancy:

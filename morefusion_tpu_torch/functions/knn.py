@@ -24,9 +24,17 @@ def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def nn(ref: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
-    """Index into ``ref (B, R, 3)`` of the nearest neighbour of each point
-    of ``query (B, Q, 3)``: ``(B, Q)`` int32, the lowest index on a tie. No
-    gradient flows through the indices."""
+    """Index into ``ref`` of the nearest neighbour of each point of
+    ``query``, the lowest index on a tie; no gradient flows through the
+    indices. Two forms, both float32 with 3 coordinates:
+
+    - JAX's, ``ref (R, 3)`` and ``query (Q, 3)`` -> ``(Q,)`` int32: run as
+      one lane of the batched form;
+    - batched over lanes, ``ref (B, R, 3)`` and ``query (B, Q, 3)`` ->
+      ``(B, Q)`` int32.
+    """
+    if ref.dim() == 2 and query.dim() == 2:
+        return nn(ref[None], query[None])[0]
     with torch.no_grad():
         return _knn_ops.nn_indices(ref.detach().contiguous(),
                                    query.detach().contiguous())

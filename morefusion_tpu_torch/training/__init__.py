@@ -1,5 +1,6 @@
 """Training of the port (``morefusion_tpu.training``): the train and eval
-steps, the device augmentation, the batch loader, evaluation, logging,
+steps (single-device and data parallel), the device augmentation, the
+single-buffer transfer form, the batch loader, evaluation, logging,
 checkpoints and the loop ``loop.fit``."""
 
 # flake8: noqa: F401
@@ -7,6 +8,8 @@ checkpoints and the loop ``loop.fit``."""
 from .trainer import CadPointBank
 from .trainer import TrainState
 from .trainer import create_train_state
+from .trainer import make_dp_eval_step
+from .trainer import make_dp_train_step
 from .trainer import make_eval_step
 from .trainer import make_loss_fn
 from .trainer import make_train_step
@@ -24,3 +27,4 @@ from .checkpoints import import_backbone_npz
 from .checkpoints import import_params_npz
 from .data import BatchLoader
 from . import loop
+from . import transfer

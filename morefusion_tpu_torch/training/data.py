@@ -4,7 +4,9 @@ Port of ``morefusion_tpu/training/data.py::BatchLoader``: a thread
 prefetches transformed, stacked batches; ``num_workers > 0`` fans the
 per-batch load and augmentation out to forked worker processes. The
 shuffle is ``np.random.RandomState(seed)``'s, so the batch order is the
-JAX package's. Workers run NumPy and cv2 only: tensors reach the device
+JAX package's. ``shard`` (a data-parallel rank's ``local_batch_slice``)
+keeps those rows of every batch's indices: each rank draws the same global
+shuffle and loads only its own rows. Workers run NumPy and cv2 only: tensors reach the device
 in the parent (``loop.py``), never in a forked child.
 """
 
@@ -43,6 +45,7 @@ class BatchLoader:
         drop_last: bool = True,
         num_workers: int = 0,
         indices: Optional[np.ndarray] = None,
+        shard: Optional[slice] = None,
     ):
         self._dataset = dataset
         self._batch_size = batch_size
@@ -54,6 +57,7 @@ class BatchLoader:
         self._indices = (
             np.arange(len(dataset)) if indices is None else np.asarray(indices)
         )
+        self._shard = shard
         #: a list to which the serial path appends each batch's ms
         self.batch_ms = None
 
@@ -98,6 +102,8 @@ class BatchLoader:
             batch_idx = idx[lo : lo + self._batch_size]
             if self._drop_last and len(batch_idx) < self._batch_size:
                 break
+            if self._shard is not None:
+                batch_idx = batch_idx[self._shard]
             out.append(batch_idx)
         return out
 

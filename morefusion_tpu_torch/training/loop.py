@@ -1,26 +1,47 @@
 """The training loop of the port.
 
-Port of ``morefusion_tpu/training/loop.py::fit`` on one device: Adam at
-1e-4 (or a schedule), the loss schedule ``add -> add/add_s`` after epoch 1,
+Port of ``morefusion_tpu/training/loop.py::fit``: Adam at 1e-4 (or a
+schedule), the loss schedule ``add -> add/add_s`` after epoch 1,
 evaluation every ``eval_interval`` epochs with per-class ADD AUC, snapshots
-latest / best ADD / best AUC, ``log.json`` and ``args.json``.
+latest / best ADD / best AUC, ``log.json`` and ``args.json``; data
+parallel over the ranks of the process group (``torchrun``), every step
+through ``make_dp_train_step`` and every evaluation through
+``make_dp_eval_step``, as JAX's runs every step through its ``shard_map``
+steps.
+
+Data parallelism: every rank draws the same global shuffle from ``seed``
+and loads only its ``local_batch_slice`` of each batch; gradients and
+metrics are averaged over the ranks; the evaluation's records are gathered
+to rank 0 (``gather_obj``), which summarizes them and alone writes
+``args.json``, the log, the snapshots and ``timing.json``. All ranks run
+the same number of steps. In one process all of it is the single-device
+loop.
+
+The transfer form: when the train set's batches carry ``z`` (a packed set
+with ``transfer=True``), the schema comes from the first batch, each rank
+packs its rows into one uint8 buffer (``training/transfer.py``) in the copy
+thread and ships it in one copy; the steps unpack it and rebuild the cloud
+on the device. The val loader takes the same form when its set has it.
 
 The host prepares batches in ``BatchLoader``'s thread (or forked workers);
-a second thread pins each batch and copies it to the card on a stream of
-its own, so that both overlap the step on the card. ``timing.json`` in the
-run's directory records where a step's time went on the host: the batch's
-preparation (in ``BatchLoader``'s thread; not recorded with worker
-processes), its copy (in the copy thread) and the loop's wait for it, and
-the ms of each evaluation batch and checkpoint save.
+a second thread packs, pins and copies each batch to the card on a stream
+of its own, so that both overlap the step on the card. ``timing.json`` in
+the run's directory records where a step's time went on the host: the
+batch's preparation (in ``BatchLoader``'s thread; not recorded with worker
+processes), its packing (transfer form) and its copy (in the copy thread),
+the loop's wait for it, the bytes a batch shipped, and the ms of each
+evaluation batch and checkpoint save.
 
 Differences from the JAX loop: the model comes initialised (JAX draws one
 train batch to run ``model.init``, which consumes the loader's first
-shuffle, so JAX's epoch ``e`` reads the port's permutation ``e + 1``); one
-device, no data parallelism; no transfer form.
+shuffle, so JAX's epoch ``e`` reads the port's permutation ``e + 1``); the
+transfer schema is built from the first batch of the first epoch, which
+the loop then trains on.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -30,7 +51,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from .checkpoints import (
     CheckpointManager,
     import_backbone_npz,
@@ -42,9 +65,13 @@ from .reporting import LogReport, write_args
 from .trainer import (
     CadPointBank,
     create_train_state,
-    make_eval_step,
-    make_train_step,
+    make_dp_eval_step,
+    make_dp_train_step,
 )
+from .transfer import TransferSchema
+
+#: bytes of the buffer that gathers one rank's evaluation records
+EVAL_GATHER_BYTES = 1 << 22
 
 
 class LeakBudgetExit(Exception):
@@ -111,16 +138,27 @@ def _pipe_stage(src_iter, fn, stop, depth: int = 2):
         thread.join()
 
 
-def _prefetch_to_device(host_iter, device, timing, depth: int = 2):
-    """Host batches as tensors on ``device``: a thread pins each batch and
-    copies it with ``non_blocking=True`` on a stream of its own; the
-    consumer's stream waits for that copy's event. ``timing["copy_ms"]``
-    collects the host ms of each batch's pinning and copy."""
+def _prefetch_to_device(host_iter, device, timing, schema=None,
+                        depth: int = 2):
+    """Host batches as tensors on ``device``: a thread packs each batch
+    into ``schema``'s buffer (when given), pins it and copies it with
+    ``non_blocking=True`` on a stream of its own; the consumer's stream
+    waits for that copy's event. Yields the dict of tensors, or the packed
+    buffer. ``timing`` collects the host ms of each batch's packing
+    (``pack_ms``) and of its pinning and copy (``copy_ms``), and the bytes
+    of the last batch shipped (``batch_bytes``)."""
     stop = threading.Event()
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 
     def to_device(hb):
+        if schema is not None:
+            t0 = time.perf_counter()
+            hb = {"buf": schema.pack(hb)}
+            timing.setdefault("pack_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+        timing["batch_bytes"] = int(sum(np.asarray(v).nbytes
+                                        for v in hb.values()))
         t0 = time.perf_counter()
         if not cuda:
             out = {k: torch.from_numpy(np.ascontiguousarray(v))
@@ -143,9 +181,55 @@ def _prefetch_to_device(host_iter, device, timing, depth: int = 2):
                 current.wait_event(event)
                 for t in out.values():
                     t.record_stream(current)
-            yield out
+            yield out["buf"] if schema is not None else out
     finally:
         stop.set()
+
+
+def _first_and_rest(loader):
+    """(the loader's first batch, an iterator over all of its batches of
+    that epoch, the first included), or (None, empty)."""
+    it = iter(loader)
+    first = next(it, None)
+    if first is None:
+        return None, iter(())
+    return first, itertools.chain([first], it)
+
+
+def _schema_of(batch):
+    return None if batch is None or "z" not in batch else TransferSchema(
+        batch)
+
+
+def _replicate_state(state, mesh):
+    """Rank 0's model, optimizer, schedule and step on every rank (after
+    rank 0 alone restored a snapshot)."""
+    if mesh.world_size == 1:
+        return
+    snap = None
+    if parallel.is_primary():
+        snap = dict(
+            model={k: v.cpu() for k, v in state.model.state_dict().items()},
+            optimizer=_to_cpu(state.optimizer.state_dict()),
+            scheduler=state.scheduler.state_dict(), step=state.step)
+    box = [snap]
+    dist.broadcast_object_list(box, src=0)
+    if not parallel.is_primary():
+        snap = box[0]
+        state.model.load_state_dict(snap["model"])
+        state.optimizer.load_state_dict(snap["optimizer"])
+        state.scheduler.load_state_dict(snap["scheduler"])
+        state.step = snap["step"]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
 
 
 def fit(
@@ -176,20 +260,26 @@ def fit(
     rss_exit_gb: float = 0.0,
     device="cuda",
 ):
-    """Train ``model`` (moved to ``device``); returns (state, the last
-    evaluation's summary). ``learning_rate`` is a number or a function of
-    the step (``cli/train.py``'s cosine schedule). The model's occupancy
-    branch (``model.with_occupancy``) takes the occupancy grids; the
-    occupancy loss term is on for the ``+occupancy`` losses only.
-    ``device_augment`` runs the photometric and point-cloud augmentation
-    inside the step (the packed path, whose host does the mask truncation
-    alone). The val loader drops its last partial batch: with fewer val
-    crops than ``val_batch_size`` (48) no evaluation runs and the summary
-    stays empty."""
-    device = torch.device(device)
-    write_args(out_dir, args_dict or {})
-    log = LogReport(out_dir)
-    ckpt = CheckpointManager(out_dir)
+    """Train ``model`` (moved to ``device``: ``cuda:LOCAL_RANK`` for
+    ``"cuda"`` under ``torchrun``); returns (state, the last evaluation's
+    summary, on rank 0; ``{}`` on the other ranks). ``batch_size`` and
+    ``val_batch_size`` are global: each rank takes its slice.
+    ``learning_rate`` is a number or a function of the step
+    (``cli/train.py``'s cosine schedule). The model's occupancy branch
+    (``model.with_occupancy``) takes the occupancy grids; the occupancy loss
+    term is on for the ``+occupancy`` losses only. ``device_augment`` runs
+    the photometric and point-cloud augmentation inside the step (the
+    packed path, whose host does the mask truncation alone). The val loader
+    drops its last partial batch: with fewer val crops than
+    ``val_batch_size`` (48) no evaluation runs and the summary stays
+    empty."""
+    mesh = parallel.data_mesh(device)
+    device = mesh.device
+    primary = parallel.is_primary()
+    if primary:
+        write_args(out_dir, args_dict or {})
+    log = LogReport(out_dir) if primary else None
+    ckpt = CheckpointManager(out_dir) if primary else None
     model.to(device)
     bank = CadPointBank.build(models_bank, n_fg_class, device=device)
 
@@ -200,14 +290,17 @@ def fit(
         shuffle=True,
         seed=seed,
         num_workers=num_workers,
+        shard=parallel.local_batch_slice(batch_size, mesh),
     )
+    val_batch_size = val_batch_size or 48
     val_loader = BatchLoader(
         val_dataset,
-        val_batch_size or 48,
+        val_batch_size,
         transform_val,
         shuffle=False,
         drop_last=True,
         num_workers=num_workers,
+        shard=parallel.local_batch_slice(val_batch_size, mesh),
     )
 
     if pretrained_model:
@@ -218,18 +311,10 @@ def fit(
         import_backbone_npz(model, pretrained_backbone)
         print(f"initialized backbone from {pretrained_backbone}")
     state = create_train_state(model, learning_rate)
-    if resume:
+    if resume and primary:
         ckpt.restore_latest(state)
-
-    train_step = make_train_step(
-        model,
-        bank,
-        # the occupancy grids feed the model whenever it has the branch;
-        # the occupancy loss term only for the "+occupancy" losses
-        occupancy_loss_term="occupancy" in loss,
-        augment=device_augment,
-    )
-    eval_step = make_eval_step(model, bank)
+    if resume:
+        _replicate_state(state, mesh)
 
     steps_per_epoch = max(len(train_loader), 1)
     eval_every = max(int(steps_per_epoch * eval_interval), 1)
@@ -240,14 +325,29 @@ def fit(
                   eval_ms_per_batch=[], save_latest_ms=[], save_best_ms=[])
     train_loader.batch_ms = timing["host_prep_ms"]  # serial loader only
 
+    # the steps are built with the first train batch, whose keys say
+    # whether the set ships in the transfer form
+    train_step = None
+    val_schema = _schema_of(next(iter(val_loader), None))
+    eval_step = make_dp_eval_step(model, bank, mesh,
+                                  transfer_schema=val_schema)
+
     def run_eval():
-        ev = Evaluator()
+        outs = []
         for batch in _prefetch_to_device(val_loader, device,
-                                         dict(copy_ms=[])):
+                                         dict(copy_ms=[]), val_schema):
             t0 = time.perf_counter()
-            ev.add_batch(eval_step(batch))  # reads the records back
+            out = eval_step(batch)
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
             timing["eval_ms_per_batch"].append(
                 (time.perf_counter() - t0) * 1e3)
+        per_rank = parallel.gather_obj(outs, EVAL_GATHER_BYTES)
+        if per_rank is None:
+            return {}
+        ev = Evaluator()
+        for rows in zip(*per_rank):  # the global batches' order
+            for out in rows:
+                ev.add_batch(out)
         return ev.summarize()
 
     def timed_save(key, fn, *args):
@@ -268,7 +368,22 @@ def fit(
         # loss schedule: 'add' only during epoch 0, then add/add_s, from
         # the global step so that a resumed run keeps it
         use_symmetric = "add_s" in loss and step >= steps_per_epoch
-        batches = _prefetch_to_device(train_loader, device, timing)
+        if train_step is None:
+            first, host_batches = _first_and_rest(train_loader)
+            schema = _schema_of(first)
+            train_step = make_dp_train_step(
+                model,
+                bank,
+                mesh,
+                # the occupancy grids feed the model whenever it has the
+                # branch; the occupancy loss term only for "+occupancy"
+                occupancy_loss_term="occupancy" in loss,
+                augment=device_augment,
+                transfer_schema=schema,
+            )
+        else:
+            host_batches = train_loader
+        batches = _prefetch_to_device(host_batches, device, timing, schema)
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -280,6 +395,7 @@ def fit(
             step += 1
 
             if step % log_interval == 0:
+                # the metrics are the ranks' mean: every rank checks them
                 m = {f"main/{k}": float(v) for k, v in metrics.items()}
                 if not np.isfinite(m.get("main/loss", 0.0)):
                     raise FloatingPointError(
@@ -290,7 +406,8 @@ def fit(
                 m["main/sps_window"] = (step - win_step) / max(
                     now - win_t, 1e-9)
                 win_step, win_t = step, now
-                log.report(m, step=step, epoch=step / steps_per_epoch)
+                if primary:
+                    log.report(m, step=step, epoch=step / steps_per_epoch)
 
             if step % eval_every == 0:
                 summary = run_eval()
@@ -312,9 +429,11 @@ def fit(
                                summary.get("main/add_or_add_s/auc", 0.0),
                                "max")
                 win_step, win_t = step, time.time()
-                # the leak-budget restart point: latest was just saved
+                # the leak-budget restart point: latest was just saved (one
+                # process only: a rank leaving alone would hang the others)
                 if (
                     rss_exit_gb
+                    and mesh.world_size == 1
                     and step < total_steps
                     and _rss_gb() > rss_exit_gb
                 ):
@@ -329,8 +448,10 @@ def fit(
                 break
         batches.close()
 
-    timed_save("save_latest_ms", ckpt.save_latest, state, step)
-    with open(os.path.join(out_dir, "timing.json"), "w") as f:
-        json.dump(dict(timing, steps=step - step0,
-                       steps_per_epoch=steps_per_epoch), f, indent=1)
+    if primary:
+        timed_save("save_latest_ms", ckpt.save_latest, state, step)
+        with open(os.path.join(out_dir, "timing.json"), "w") as f:
+            json.dump(dict(timing, steps=step - step0,
+                           steps_per_epoch=steps_per_epoch), f, indent=1)
+    parallel.barrier()
     return state, summary

@@ -1,9 +1,9 @@
 """The pose models' train and eval steps of the port (SingleView3D and
-PoseNet).
+PoseNet), on one device and data parallel.
 
 Port of ``morefusion_tpu/training/trainer.py`` (``CadPointBank``,
-``make_train_step``, ``make_eval_step``, ``create_train_state``,
-``stack_examples``) on one device:
+``make_train_step``, ``make_eval_step``, ``make_dp_train_step``,
+``make_dp_eval_step``, ``create_train_state``, ``stack_examples``):
 
 - Adam (``torch.optim.Adam``; betas 0.9 / 0.999 and eps 1e-8 are optax's
   defaults too) at a learning rate that is a number or a schedule of the
@@ -14,18 +14,19 @@ Port of ``morefusion_tpu/training/trainer.py`` (``CadPointBank``,
 - the CAD point banks live on the device as ``(n_class + 1, N, 3)`` tables
   indexed by the one-based class id (row 0, the background, is zeros);
 - each step draws its sampling, dropout and augmentation from generators
-  derived from ``(seed, step)``, where the JAX step folds the step into its
-  key and splits it;
+  derived from ``(seed, step)``, and on a rank r > 0 of a data-parallel
+  step from ``(seed, step, r)``, where the JAX step folds the step and the
+  device's index into its key and splits it;
 - ``occupancy_loss_term`` adds the occupancy reward / penalty (the
   ``+occupancy`` losses); it defaults to the model's occupancy branch, as
   JAX's defaults to ``with_occupancy``;
 - ``augment=True`` runs ``augment_device.augment_batch`` on the batch's rgb
-  and pcd inside the step.
+  and pcd inside the step;
+- with a ``transfer_schema`` the batch arrives as one packed uint8 buffer
+  (``training/transfer.py``), unpacked and its cloud rebuilt in the step.
 
 Fixed where the JAX functions take arguments: 500 CAD points per class
 from seed 0, the confidence weight 0.015, the occupancy term at scale 1.
-The JAX step's ``transfer_schema`` and ``axis_name`` options and its
-data-parallel steps are not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ import torch
 
 from ..datasets.ycb_video.class_names import symmetric_flags
 from ..models import losses as losses_module
+from ..parallel import DataMesh
 from . import augment_device
+from . import transfer as transfer_module
 
 EVAL_SEED = 1234  # the JAX eval step's fixed sampling key
 N_CAD_POINTS = 500  # CAD points per class in the bank
@@ -161,10 +164,14 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def step_generators(seed: int, step: int, device):
+def step_generators(seed: int, step: int, device, rank: int = 0):
     """The (sampling, dropout, augmentation) generators of one step, on
-    ``device``, derived from ``(seed, step)`` alone."""
-    states = np.random.SeedSequence([seed, step]).generate_state(3, np.uint64)
+    ``device``, derived from ``(seed, step)`` alone on rank 0 and from
+    ``(seed, step, rank)`` on the other ranks of a data-parallel step, so
+    that each rank draws its own streams and one process draws those of
+    rank 0."""
+    entropy = [seed, step] + ([rank] if rank else [])
+    states = np.random.SeedSequence(entropy).generate_state(3, np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(int(s))
                  for s in states)
 
@@ -175,6 +182,17 @@ def _device_of(model):
 
 def _to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _unpacked(batch, device, transfer_schema):
+    """The batch's dict on ``device``; a packed buffer (a tensor, with a
+    ``transfer_schema``) unpacked there, its cloud rebuilt."""
+    if transfer_schema is None:
+        return _to_device(batch, device)
+    out = transfer_schema.unpack(torch.as_tensor(batch, device=device))
+    out["pcd"] = transfer_module.reconstruct_pcd(out.pop("z"),
+                                                 out.pop("pcd_coef"))
+    return out
 
 
 def _has_occupancy_branch(model):
@@ -198,7 +216,8 @@ def _model_inputs(model, batch):
 
 def make_loss_fn(model, bank: CadPointBank,
                  occupancy_loss_term: Optional[bool] = None,
-                 augment: bool = False):
+                 augment: bool = False, transfer_schema=None,
+                 forward=None):
     """The train step's loss: ``loss_fn(batch, use_symmetric, *, train=True,
     sample_generator=None, dropout_generator=None,
     augment_generator=None) -> (loss, metrics)``.
@@ -215,19 +234,23 @@ def make_loss_fn(model, bank: CadPointBank,
     PoseNet gets neither. The occupancy reward / penalty joins the loss when
     ``occupancy_loss_term`` (default: the model's occupancy branch).
     ``augment`` augments rgb and pcd with ``augment_generator``
-    (``augment_device.augment_batch``).
+    (``augment_device.augment_batch``). With ``transfer_schema`` the batch
+    is that schema's packed ``(B, K)`` uint8 buffer. ``forward`` is the
+    module that runs the forward (a DDP wrapper of ``model``; default
+    ``model``).
     """
     if occupancy_loss_term is None:
         occupancy_loss_term = _has_occupancy_branch(model)
+    forward = model if forward is None else forward
 
     def loss_fn(batch, use_symmetric, *, train: bool = True,
                 sample_generator=None, dropout_generator=None,
                 augment_generator=None):
-        batch = _to_device(batch, _device_of(model))
+        batch = _unpacked(batch, _device_of(model), transfer_schema)
         if augment:
             batch["rgb"], batch["pcd"] = augment_device.augment_batch(
                 augment_generator, batch["rgb"], batch["pcd"])
-        quat, trans, conf = model(
+        quat, trans, conf = forward(
             **_model_inputs(model, batch), generator=sample_generator,
             train=train, dropout_generator=dropout_generator)
         cid = batch["class_id"].long()
@@ -264,19 +287,75 @@ def make_loss_fn(model, bank: CadPointBank,
 
 def make_train_step(model, bank: CadPointBank,
                     occupancy_loss_term: Optional[bool] = None,
-                    augment: bool = False):
+                    augment: bool = False, transfer_schema=None):
     """``train_step(state, batch, use_symmetric, seed=0) -> (state,
     metrics)``: one Adam step on the loss of ``make_loss_fn(model, bank,
-    occupancy_loss_term, augment)`` with dropout on, at the schedule's
-    learning rate for ``state.step``. ``state`` is updated in place and
-    returned; ``metrics`` are detached scalars on the device.
+    occupancy_loss_term, augment, transfer_schema)`` with dropout on, at the
+    schedule's learning rate for ``state.step``. ``state`` is updated in
+    place and returned; ``metrics`` are detached scalars on the device.
     """
-    loss_fn = make_loss_fn(model, bank, occupancy_loss_term, augment)
+    return _make_step(model, bank, None, occupancy_loss_term, augment,
+                      transfer_schema)
+
+
+def make_dp_train_step(model, bank: CadPointBank, mesh: DataMesh,
+                       occupancy_loss_term: Optional[bool] = None,
+                       augment: bool = False, transfer_schema=None):
+    """The data-parallel train step, ``train_step(state, batch,
+    use_symmetric, seed=0) -> (state, metrics)``, where ``batch`` is this
+    rank's shard (``parallel.shard_batch``, or its slice of the packed
+    buffer).
+
+    Each rank runs the single-device step of ``make_train_step`` on its
+    shard, with its own generators (``step_generators(seed, step, device,
+    mesh.rank)``). Under a process group the forward runs through
+    ``DistributedDataParallel``, which replicates rank 0's parameters when
+    it wraps the model and averages the gradients over the ranks in the
+    backward, as JAX's ``lax.pmean`` does; the metrics are averaged by an
+    ``all_reduce``. Without one (a single process) the step is the
+    single-device step, as a one-device mesh makes JAX's. Every parameter
+    of SingleView3D (tiny and full width, with or without the occupancy
+    branch and term), PoseNet and the segmenter's UNet gets a gradient in
+    every step, so DDP runs with ``find_unused_parameters=False`` (a model
+    that left one out would fail in its second step). The models hold no
+    buffers, so DDP's buffer broadcast moves nothing.
+    """
+    return _make_step(model, bank, mesh, occupancy_loss_term, augment,
+                      transfer_schema)
+
+
+def wrap_ddp(model, mesh: Optional[DataMesh]):
+    """``model`` under ``DistributedDataParallel`` when ``mesh`` is under a
+    process group, else None (see ``make_dp_train_step``)."""
+    if mesh is None or not mesh.distributed:
+        return None
+    return torch.nn.parallel.DistributedDataParallel(
+        model, find_unused_parameters=False)
+
+
+def all_reduce_mean(metrics: dict, mesh: Optional[DataMesh]) -> dict:
+    """The mean over the ranks of a dict of scalar tensors, in one
+    ``all_reduce`` (the dict itself without a process group)."""
+    if mesh is None or not mesh.distributed or mesh.world_size == 1:
+        return metrics
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    torch.distributed.all_reduce(flat)
+    flat = flat / mesh.world_size
+    return {k: flat[i] for i, k in enumerate(keys)}
+
+
+def _make_step(model, bank, mesh, occupancy_loss_term, augment,
+               transfer_schema):
+    ddp = wrap_ddp(model, mesh)
+    rank = mesh.rank if mesh is not None else 0
+    loss_fn = make_loss_fn(model, bank, occupancy_loss_term, augment,
+                           transfer_schema, forward=ddp)
 
     def train_step(state: TrainState, batch, use_symmetric, seed: int = 0):
         device = _device_of(state.model)
         sample_gen, dropout_gen, augment_gen = step_generators(
-            seed, state.step, device)
+            seed, state.step, device, rank)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, use_symmetric,
                                 sample_generator=sample_gen,
@@ -286,22 +365,24 @@ def make_train_step(model, bank: CadPointBank,
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, all_reduce_mean(metrics, mesh)
 
+    train_step.ddp = ddp
     return train_step
 
 
-def make_eval_step(model, bank: CadPointBank):
+def make_eval_step(model, bank: CadPointBank, transfer_schema=None):
     """``eval_step(batch) -> {add, add_s, add_or_add_s, class_id}``, each
     ``(B,)``: the best-confidence pose of a forward without dropout, its
     points sampled from a generator seeded with the JAX eval step's fixed
-    seed."""
+    seed. With ``transfer_schema`` the batch is its packed buffer."""
 
     def eval_step(batch):
         device = _device_of(model)
-        batch = _to_device(batch, device)
         generator = torch.Generator(device=device).manual_seed(EVAL_SEED)
         with torch.no_grad():
+            batch = _unpacked(batch, device, transfer_schema)
             quat, trans, conf = model(**_model_inputs(model, batch),
                                       generator=generator)
             cid = batch["class_id"].long()
@@ -318,6 +399,16 @@ def make_eval_step(model, bank: CadPointBank):
         return out
 
     return eval_step
+
+
+def make_dp_eval_step(model, bank: CadPointBank, mesh: DataMesh,
+                      transfer_schema=None):
+    """The data-parallel eval step: ``make_eval_step`` on this rank's shard,
+    its records left on the rank (JAX's ``shard_map``ped eval reseeds every
+    device with the same fixed key, as each rank here reseeds with
+    ``EVAL_SEED``). ``training.loop.fit`` gathers the records to rank 0."""
+    del mesh  # no collective: each rank evaluates its own rows
+    return make_eval_step(model, bank, transfer_schema)
 
 
 def stack_examples(examples):

@@ -152,10 +152,11 @@ def test_packed_load_batch(packed, augmentation):
 
 
 def test_packed_transfer_form_raises(packed):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.PackedPoseDataset(packed[0], transfer=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.packed.derive_transfer_arrays(packed[0])
+    """Without its arrays the transfer form raises, as JAX's does."""
+    assert not TD.has_transfer_arrays(packed[0])
+    for pkg, path in ((TD, packed[0]), (JD, packed[1])):
+        with pytest.raises(IOError, match="derive_transfer_arrays"):
+            pkg.PackedPoseDataset(path, transfer=True)
 
 
 def test_concat_and_random_sampling(packed, reindexed):

@@ -363,7 +363,7 @@ def _fit(out, data, **kw):
 def test_fit_evaluates_snapshots_and_resumes(tmp_path, packed_set):
     out = str(tmp_path / "run")
     calls = []
-    real = TLoop.make_train_step
+    real = TLoop.make_dp_train_step
 
     def spy_make(*args, **kw):
         step = real(*args, **kw)
@@ -374,7 +374,7 @@ def test_fit_evaluates_snapshots_and_resumes(tmp_path, packed_set):
 
         return spied
 
-    with mock.patch.object(TLoop, "make_train_step", spy_make):
+    with mock.patch.object(TLoop, "make_dp_train_step", spy_make):
         state, summary = _fit(out, packed_set, args_dict={"tag": "a"})
     n = len(TD.PackedPoseDataset(packed_set))
     spe = n // 2
@@ -401,7 +401,7 @@ def test_fit_evaluates_snapshots_and_resumes(tmp_path, packed_set):
     assert len(timing["eval_ms_per_batch"]) == 2 * (n_val // 4)
 
     calls.clear()
-    with mock.patch.object(TLoop, "make_train_step", spy_make):
+    with mock.patch.object(TLoop, "make_dp_train_step", spy_make):
         state, _ = _fit(out, packed_set, resume=True, max_steps=2 * spe + 1)
     assert state.step == 2 * spe + 1
     assert calls == [(2 * spe, True)]

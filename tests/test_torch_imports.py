@@ -88,7 +88,9 @@ def test_port_sources_exist():
                    "cli/ambiguity_floor.py", "cli/profile_train.py",
                    "cli/profile_backward.py", "cli/export_checkpoint.py",
                    "cli/plot_curves.py", "cli/resolution_ab.py",
-                   "cli/regen_datasets.py", "cli/campaign_guardian.py"):
+                   "cli/regen_datasets.py", "cli/campaign_guardian.py",
+                   "parallel/__init__.py", "parallel/distributed.py",
+                   "parallel/mesh.py", "training/transfer.py"):
         assert f"morefusion_tpu_torch/{module}" in names
 
 

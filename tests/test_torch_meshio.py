@@ -9,6 +9,8 @@ meshes, the quad OBJ and ``voxel_grid_to_mesh`` of procedural models'
 solid grids (whose faces are split along diagonals a ray can hit).
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -116,6 +118,27 @@ def test_ray_crossings(name, tmp_path):
     got = TM._ray_triangle_hits_z(v, f, xy)
     want = JM._ray_triangle_hits_z(v, f, xy)
     assert len(got) == len(want)
+    for g, w in zip(got, want):
+        equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+@pytest.mark.parametrize("block", [1, 7 * 12, 1 << 22])
+def test_ray_crossings_in_blocks(name, block, tmp_path):
+    """The port tests a block of rays at once: a ray a block, blocks that
+    leave a remainder, and all rays in one block give JAX's per-ray
+    crossings bit for bit, also for rays through vertices and edges (a
+    grid over the bounding box, its corners included)."""
+    v, f = MESHES[name](tmp_path)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], 9),
+                         np.linspace(lo[1], hi[1], 7), indexing="ij")
+    xy = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    with mock.patch.object(TM, "RAY_BLOCK_ELEMENTS", block * len(f)):
+        got = TM._ray_triangle_hits_z(v, f, xy)
+    want = JM._ray_triangle_hits_z(v, f, xy)
+    assert len(got) == len(want) == len(xy)
+    assert sum(len(w) for w in want) > 0
     for g, w in zip(got, want):
         equal(g, w)
 
