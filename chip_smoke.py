@@ -6,11 +6,12 @@
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
 and ``knn.cu``) with ``nvcc`` and makes phase 11's, phase 13's and phase
-16's data, then runs seventeen phases, each printing one JSON line (phases
-13 and 15 one a step, then their total) with ``elapsed_s``, the seconds
-since the start; the CPU's sides of phases 12 and 14 run in spawned
-processes beside the later phases and print their lines
-(``evaluation_exact_replay``, ``replay_card_vs_cpu``) at the end:
+16's data (the kernels compile beside it, one ``nvcc`` a source), then runs
+eighteen phases, each printing one JSON line (phases 13 and 15 one a step,
+then their total) with ``elapsed_s``, the seconds since the start; the
+CPU's sides of phases 12 and 14 run in spawned processes beside the later
+phases and print their lines (``evaluation_exact_replay``,
+``replay_card_vs_cpu``) at the end:
 
 1. kernel vs plain: the min-distance kernel against its plain PyTorch
    version at the ICC shapes, at edge cases (masked, NaN and overflowing
@@ -134,8 +135,9 @@ processes beside the later phases and print their lines
    ``cli.ablation_report``'s table (with the paired bootstrap), then
    ``cli.evaluate`` (raw, +icp, +icc, +icc+icp, joint ICC) by default, in
    the exact cross mode and at ``--icc-grid-scale 2`` coarse to fine with
-   the rate decay, and at ``--icc-grid-scale 3`` (96^3) on
-   ``EVAL_FULL["scale3_examples"]`` crops: each method's AUCs, the refine
+   the rate decay (these two on ``EVAL_FULL["mode_examples"]`` crops), and
+   at ``--icc-grid-scale 3`` (96^3) on ``EVAL_FULL["scale3_examples"]``
+   crops: each method's AUCs, the refine
    loop's frames a second, the kernels' launches by shape and the peak
    memory; one frame's joint ICC problem in exact mode and at scale 2 with
    the kernels against the plain versions in deterministic mode (losses
@@ -241,8 +243,8 @@ processes beside the later phases and print their lines
    counted (both kernels launched), the bank's bare step timed as phase 6
    times its own, one step with the kernels against the plain versions in
    deterministic mode (phase 11's tolerances); (d) ``cli.profile_train``
-   and ``cli.profile_backward`` at their defaults (B = 16, 20 and 15
-   steps): each stage's and variant's ms, the FLOP counter's TFLOP/s and
+   and ``cli.profile_backward`` at their defaults but ``PROFILE_STEPS``
+   (B = 16): each stage's and variant's ms, the FLOP counter's TFLOP/s and
    the launches of each variant (C and D none of knn); (e) ``geometry.nn``
    on the card against its plain version (indices identical),
    ``cli.visualize_data``, ``cli.ambiguity_floor`` at ``--n-rotations
@@ -269,7 +271,22 @@ processes beside the later phases and print their lines
    ``profile_train``'s DP step beside its bare step (from phase 16's
    call); (e) ``cli.train_segmentation`` for four steps under the group of
    this process (its step under DDP). Each child is killed at
-   ``DP_CHILD_TIMEOUT``, so a hung rendezvous fails the phase.
+   ``DP_CHILD_TIMEOUT``, so a hung rendezvous fails the phase;
+18. the headless checks and a campaign: (a) the eight
+   ``morefusion_tpu_torch.checks`` modules on the card, each counted
+   (min_dist launched by ``check_occupancy_voxelization``, knn by
+   ``check_icp_convergence``), against the same at ``--device cpu`` in a
+   background process: ICP's ADD per iteration within ``CHECK_ADD_ATOL``
+   and its gated count equal, the occupancy grids within
+   ``CHECK_GRID_ATOL`` and their voxel and vertex counts equal, the device
+   augmentation at the card's draws within ``CHECK_AUG_ATOL`` of the CPU's
+   at the same parameters, every other printed number and every image
+   identical; (b) beside (a), ``campaigns/r5tex.sh`` for
+   ``CAMPAIGN_EPOCHS`` epoch under ``timeout`` on phase 11's packed sets
+   linked under the names it waits for, ``RETRIES=30`` (a failure ends it
+   at once): exit 0 and ``training complete``, its steps a second and its
+   ``torchrun`` worker's launches (``LAUNCH_LOG_SITE``), on one card
+   (``NPROC=1``).
 
 Then the script's seconds, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -2895,9 +2912,13 @@ EVAL_SWEEP = ("occ:observed", "occ:nontarget_full", "occ:full_bg",
               "noocc:observed")
 EVAL_METHODS = ("morefusion", "morefusion+icp", "morefusion+icc",
                 "morefusion+icc+icp")
-EVAL_FULL = dict(n_examples=None, scale3_examples=12, iterations=30,
+# the exact mode's and scale 2's runs check those modes' paths and
+# launches on the first mode_examples crops; the default run scores all
+EVAL_FULL = dict(n_examples=None, mode_examples=24, scale3_examples=12,
+                 iterations=30,
                  cpu_examples=8, n_boot=200)
-EVAL_SMALL = dict(n_examples=4, scale3_examples=None, iterations=2,
+EVAL_SMALL = dict(n_examples=4, mode_examples=None, scale3_examples=None,
+                  iterations=2,
                   cpu_examples=2, n_boot=20, icc_points=128)
 
 
@@ -3246,6 +3267,8 @@ def run_evaluation(device, small, counts, fit_root):
     occ = os.path.join(runs, "occ")
     n_ex = ([] if cfg["n_examples"] is None
             else ["--n-examples", str(cfg["n_examples"])])
+    n_mode = (n_ex if cfg["mode_examples"] is None
+              else ["--n-examples", str(cfg["mode_examples"])])
     iters = ["--icc-iterations", str(cfg["iterations"])]
     common = ["--log-dir", occ, "--data", data, "--methods",
               *EVAL_METHODS] + iters
@@ -3271,10 +3294,10 @@ def run_evaluation(device, small, counts, fit_root):
         # its dump feeds phase 14's stratify_results
         "resample": evaluate_run(device, counts, common + n_ex + [
             "--out", evaluation_dump(fit_root)]),
-        "exact": evaluate_run(device, counts, common + n_ex + [
+        "exact": evaluate_run(device, counts, common + n_mode + [
             "--icc-cross-mode", "exact"]),
         "scale2_coarse_to_fine_decay": evaluate_run(
-            device, counts, common + n_ex + [
+            device, counts, common + n_mode + [
                 "--icc-grid-scale", "2", "--icc-coarse-to-fine",
                 "--icc-alpha-decay"]),
     }
@@ -4323,7 +4346,7 @@ def phase_unpadded_icc(device, small, counts):
     if device.type == "cuda":
         check(launches["min_dist_voxels"] == 30,
               f"unpadded icc: {launches['min_dist_voxels']} launches")
-    reps = 10 if not small else 1
+    reps = 4 if not small else 1
     refine_ms = {}
     for name, pad in (("unpadded", False), ("padded", True),
                       ("unpadded_again", False), ("padded_again", True)):
@@ -5231,6 +5254,9 @@ YCB_N_ROTATIONS = 500  # ambiguity_floor's sweep
 # wrongly falls far below
 YCB_IOU_MIN = 0.5
 YCB_BARE_STEPS = 5
+# the profile CLIs' timed calls a stage (their defaults: 20 and 15); the
+# mean of 6 queued steps of ~200 ms after 3 warm-up calls
+PROFILE_STEPS = 6
 
 
 def ycb_root(fit_root):
@@ -5537,12 +5563,14 @@ def phase_ycb_fit(device, small, counts, root):
 
 def phase_profile_clis(device, small, counts, root):
     """(d) ``profile_train`` and ``profile_backward`` at their defaults
-    (B = 16, 20 and 15 steps), each counted; C and D run no knn."""
+    (B = 16) but ``PROFILE_STEPS`` steps, each counted; C and D run no
+    knn."""
     from morefusion_tpu_torch.cli import profile_backward, profile_train
 
     tiny = (["--tiny", "--batch-size", "2", "--steps", "1",
              "--image-size", "64"] if small else [])
-    argv = tiny + ["--device", device.type]
+    argv = tiny + ["--device", device.type] + (
+        [] if small else ["--steps", str(PROFILE_STEPS)])
     out, launches = {}, {}
     for c in counts:
         c.launches = 0
@@ -6248,6 +6276,297 @@ def phase_data_parallel(device, small, counts, fit_root, setup, profiles):
                 train_transfer=train["child"]["launches"])
 
 
+# -------------------------------------------------------------- phase 18
+
+# the headless checks (phase 18 (a)), card against CPU: ICP's ADD per
+# iteration (m) and the pseudo-occupancy grids (float32 on both sides);
+# everything else printed is held equal. The device augmentation's row is
+# held at the card's drawn parameters, as tests/test_torch_augment.py
+# holds it to JAX at JAX's (1e-5 on [0, 1] images)
+CHECK_ADD_ATOL = 1e-5
+CHECK_GRID_ATOL = 1e-6
+CHECK_AUG_ATOL = 255 * 1e-5
+# the campaign (phase 18 (b)): r5tex for one epoch on phase 11's packed
+# sets, linked under the names the script waits for
+CAMPAIGN = "r5tex"
+CAMPAIGN_EPOCHS = 1
+CAMPAIGN_DATA = dict(train_tex_s44000_packed="train", val_tex_packed="val")
+CAMPAIGN_TIMEOUT = 600  # seconds, under timeout(1)
+# written as sitecustomize.py into a directory first on the campaign's
+# PYTHONPATH: each Python process of the campaign that imported the
+# kernels' wrappers appends their launches to the file named in
+# CHIP_SMOKE_LAUNCH_LOG at exit; a sitecustomize that it shadows still runs
+LAUNCH_LOG_SITE = '''\
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+
+def _dump():
+    ops = sys.modules.get("morefusion_tpu_torch.ops")
+    if ops is not None:
+        with open(os.environ["CHIP_SMOKE_LAUNCH_LOG"], "a") as f:
+            f.write(json.dumps(dict(
+                pid=os.getpid(), argv=sys.argv,
+                min_dist_voxels=ops.min_dist_voxels.launches,
+                nn_indices=ops.nn_indices.launches)) + "\\n")
+
+
+atexit.register(_dump)
+_here = os.path.dirname(os.path.abspath(__file__))
+for _entry in sys.path:
+    if os.path.abspath(_entry or os.curdir) == _here:
+        continue
+    _spec = importlib.machinery.PathFinder.find_spec("sitecustomize", [_entry])
+    if _spec is not None:
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+'''
+
+
+def run_check(name, device, out_dir):
+    """``checks.<name>.main`` on ``device`` writing into ``out_dir`` ->
+    (its result, its printed lines, seconds)."""
+    import importlib
+
+    mod = importlib.import_module(f"morefusion_tpu_torch.checks.{name}")
+    t = time.perf_counter()
+    res, lines = quiet(mod.main, ["--device", device, "--out-dir", out_dir])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, lines, time.perf_counter() - t
+
+
+def cpu_checks(out_dir, threads):
+    """The CPU's side of phase 18 (a), in a background process (on
+    ``threads`` threads; None leaves them): every check at ``--device
+    cpu``, the plain versions of the kernels."""
+    from morefusion_tpu_torch.checks import CHECKS
+
+    if threads:
+        torch.set_num_threads(threads)
+    return {name: run_check(name, "cpu", os.path.join(out_dir, name))
+            for name in CHECKS}
+
+
+def equal(a, b):
+    """Whether two results of a check are the same, entry for entry."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(equal, a, b))
+    return np.array_equal(a, b)
+
+
+# what each check's card run must repeat exactly
+CHECK_EQUAL = dict(
+    check_scene_generation=("n_objects", "image"),
+    check_camera_trajectory=("eyes", "step", "path", "views"),
+    check_mapping_render=("agreement", "label", "image"),
+    check_segmentation_instances=("counts", "label", "classes",
+                                  "device_counts", "device_label",
+                                  "device_classes", "image"),
+    check_dataset_browse=("class_ids", "pitches", "image"),
+    check_augmentation=("row1",),
+    check_occupancy_voxelization=("voxels", "vertices"),
+    check_icp_convergence=("n_gated",),
+)
+
+
+def compare_checks(device, card, cpu):
+    """Card against CPU, check by check (raises on a difference); returns
+    the largest differences of the numbers held within a tolerance."""
+    from morefusion_tpu_torch.training import augment_device
+
+    for name, keys in CHECK_EQUAL.items():
+        for k in keys:
+            check(equal(card[name][0][k], cpu[name][0][k]),
+                  f"checks: {name}'s {k} on the card differs from the CPU's")
+    err = {}
+    got, want = (card["check_occupancy_voxelization"][0]["grids"],
+                 cpu["check_occupancy_voxelization"][0]["grids"])
+    err["grids"] = max(float(np.abs(got[k] - want[k]).max()) for k in got)
+    check(err["grids"] <= CHECK_GRID_ATOL,
+          f"checks: occupancy grids card vs CPU {err['grids']}")
+    got, want = (card["check_icp_convergence"][0]["add"],
+                 cpu["check_icp_convergence"][0]["add"])
+    check(len(got) == len(want), f"checks: ICP {len(got)} / {len(want)}")
+    err["icp_add_m"] = float(np.abs(np.subtract(got, want)).max())
+    check(err["icp_add_m"] <= CHECK_ADD_ATOL,
+          f"checks: ICP ADD card vs CPU {err['icp_add_m']} m")
+    # the card's device augmentation against the CPU's at the card's draws
+    aug = card["check_augmentation"][0]
+    rgb = torch.from_numpy(aug["row1"][0][None].astype(np.float32))
+    err["augmentation"] = 0.0
+    for s, row in enumerate(aug["row2_float"], start=1):
+        params = augment_device.draw_rgb_params(
+            torch.Generator(device=device).manual_seed(s), 1, device)
+        want = augment_device.apply_rgb(
+            rgb, {k: v.cpu() for k, v in params.items()})[0].numpy()
+        err["augmentation"] = max(err["augmentation"],
+                                  float(np.abs(row - want).max()))
+    check(err["augmentation"] <= CHECK_AUG_ATOL,
+          f"checks: device augmentation card vs CPU {err['augmentation']}")
+    return err
+
+
+def start_campaign(fit_root, root):
+    """Phase 18 (b): start the campaign script (a session of its own, so
+    that :func:`stop_campaign` reaches ``torchrun`` and its worker) on one
+    card; its launches are counted through ``LAUNCH_LOG_SITE``."""
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    for name, split in CAMPAIGN_DATA.items():
+        os.symlink(os.path.join(fit_root, split), os.path.join(data, name))
+    script = os.path.join(ROOT, "morefusion_tpu_torch", "campaigns",
+                          f"{CAMPAIGN}.sh")
+    run = dict(run=os.path.join(root, CAMPAIGN), script=script,
+               launch_log=os.path.join(root, "launches.jsonl"),
+               site=os.path.join(root, "site"),
+               log_path=os.path.join(root, "campaign.log"))
+    env = dict(os.environ, MFTPU_DATA=data, RETRIES="30",
+               MFT_RUNS=os.path.join(root, "runs"), MFT_CAMPAIGN_LOGS=root,
+               CHIP_SMOKE_LAUNCH_LOG=run["launch_log"], NPROC="1",
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   run["site"], os.environ.get("PYTHONPATH")))))
+    os.makedirs(run["site"])
+    with open(os.path.join(run["site"], "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_LOG_SITE)
+    run["log"] = open(run["log_path"], "w")
+    run["t0"] = time.perf_counter()
+    run["proc"] = subprocess.Popen(
+        ["timeout", "-k", "10", str(CAMPAIGN_TIMEOUT), "bash", script,
+         run["run"], str(CAMPAIGN_EPOCHS)], env=env, stdout=run["log"],
+        stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+    return run
+
+
+def stop_campaign(run):
+    """End the campaign's processes where they still run (a failure
+    elsewhere): SIGTERM to its session (``torchrun`` then stops its
+    worker), SIGKILL after 30 s."""
+    import signal
+
+    proc = run["proc"]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    run["log"].close()
+
+
+def finish_campaign(run):
+    """Wait for the campaign (``timeout`` bounds it) and check it: exit 0,
+    ``training complete``, steps, evaluations, the best snapshot and no
+    leak-budget exit."""
+    from morefusion_tpu_torch.cli import train as cli_train
+
+    code = run["proc"].wait()
+    wall_s = time.perf_counter() - run["t0"]
+    with open(run["log_path"]) as f:
+        lines = f.read().splitlines()
+    said = [ln for ln in lines if ln.startswith("[campaign]")]
+    check(code == 0 and "[campaign] training complete" in said,
+          f"campaign {CAMPAIGN}: exit {code}, said {said}; the end of its "
+          f"log: {lines[-25:]}")
+    with open(run["launch_log"]) as f:
+        procs = [json.loads(ln) for ln in f]
+    rows = read_json(os.path.join(run["run"], "log.json"))
+    evals = [r for r in rows if "main/add_or_add_s/auc" in r]
+    steps = max(r["iteration"] for r in rows)
+    span = (evals[-1]["elapsed_time"] - evals[0]["elapsed_time"]
+            if len(evals) > 1 else None)
+    check(steps > 0 and evals and os.path.exists(os.path.join(
+        run["run"], "snapshot_model_best_validation_main_auc.npz")),
+        f"campaign {CAMPAIGN}: {steps} steps, {len(evals)} evaluations")
+    check(not os.path.exists(os.path.join(run["run"],
+                                          cli_train.LEAK_EXIT_FILE)),
+          f"campaign {CAMPAIGN}: a leak-budget exit")
+    launches = {k: sum(p[k] for p in procs)
+                for k in ("min_dist_voxels", "nn_indices")}
+    return dict(
+        script=os.path.relpath(run["script"], ROOT), epochs=CAMPAIGN_EPOCHS,
+        data={k: f"phase 11's {v}" for k, v in CAMPAIGN_DATA.items()},
+        exit_code=code, said=said, wall_s=wall_s, steps=steps,
+        evaluations=len(evals),
+        steps_per_s_wall=steps / wall_s,
+        steps_per_s_first_to_last_eval=(
+            (evals[-1]["iteration"] - evals[0]["iteration"]) / span
+            if span else None),
+        best_auc=max(r["main/add_or_add_s/auc"] for r in evals),
+        processes=[dict(argv=p["argv"][:2], min_dist_voxels=p[
+            "min_dist_voxels"], nn_indices=p["nn_indices"]) for p in procs],
+        launches=launches), launches
+
+
+def phase_checks_and_campaign(device, small, counts, fit_root):
+    """Phase 18: (a) the eight headless checks on the card, against the
+    same on the CPU (a background process), counted; (b) the r5tex
+    campaign script on the card."""
+    import shutil
+
+    from morefusion_tpu_torch.checks import CHECKS
+
+    t0 = time.perf_counter()
+    root = os.path.join(fit_root, "checks")
+    os.makedirs(root)
+    seconds = {}
+    start_background("checks_cpu", cpu_checks, os.path.join(root, "cpu"),
+                     None if small else BACKGROUND_THREADS, inline=small)
+    # the campaign trains beside the card's checks, which are host work
+    # but for a few launches
+    run = (None if small
+           else start_campaign(fit_root, os.path.join(root, "campaign")))
+    try:
+        card, launches = {}, {}
+        for name in CHECKS:
+            for c in counts:
+                c.launches = 0
+            card[name] = run_check(name, device.type,
+                                   os.path.join(root, "card", name))
+            launches[name] = {c.__name__: c.launches for c in counts}
+        seconds["a_card"] = time.perf_counter() - t0
+        if small:
+            campaign, campaign_launches = dict(
+                skipped="the CPU rehearsal: r5tex trains SingleView3D at "
+                        "full width, B = 16"), dict(min_dist_voxels=0,
+                                                    nn_indices=0)
+        else:
+            check(launches["check_occupancy_voxelization"][
+                "min_dist_voxels"] > 0 and launches[
+                "check_icp_convergence"]["nn_indices"] > 0,
+                f"checks: kernels not launched {launches}")
+            campaign, campaign_launches = finish_campaign(run)
+            seconds["b_campaign"] = time.perf_counter() - run["t0"]
+    finally:
+        if run is not None:
+            stop_campaign(run)
+    t = time.perf_counter()
+    cpu, wall_s = finish_background("checks_cpu")
+    seconds["a_cpu_wait"] = time.perf_counter() - t
+    err = compare_checks(device, card, cpu)
+    shutil.rmtree(root)
+    seconds["total"] = time.perf_counter() - t0
+    emit(dict(
+        phase="checks_and_campaign", ok=True, device=str(device),
+        checks={name: dict(
+            printed=[ln for ln in card[name][1] if not ln.startswith(
+                "wrote")],
+            ms=card[name][2] * 1e3, cpu_ms=cpu[name][2] * 1e3,
+            launches=launches[name]) for name in CHECKS},
+        card_vs_cpu=err, cpu_background_wall_s=wall_s,
+        campaign=campaign, seconds=seconds,
+        tolerance=dict(icp_add_m=CHECK_ADD_ATOL, grids=CHECK_GRID_ATOL,
+                       augmentation_at_the_card_draws=CHECK_AUG_ATOL,
+                       rest="identical")))
+    return dict(
+        check_occupancy_voxelization=launches[
+            "check_occupancy_voxelization"],
+        check_icp_convergence=launches["check_icp_convergence"],
+        **{f"campaign_{CAMPAIGN}": campaign_launches})
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -6280,9 +6599,9 @@ def main(argv=None):
         print(card_line(), flush=True)
         build_s, ptxas = _build.build(ptxas_verbose=True)
         _build.load()
-        emit(dict(build_s=build_s, nvcc=" ".join(
-            _build.NVCC_FLAGS), ptxas=[
-                ln.strip() for ln in ptxas.splitlines() if "Used" in ln]))
+        emit(dict(build_s=build_s, nvcc=" ".join(_build.COMPILE_FLAGS),
+                  ptxas=[ln.strip() for ln in ptxas.splitlines()
+                         if "Used" in ln]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -6347,6 +6666,7 @@ def run_phases(device, small, counts, native_build, fit_root):
     p16 = phase_data_side(device, small, counts, fit_root, ycb_data_info)
     p17 = phase_data_parallel(device, small, counts, fit_root, setup,
                               p16["profile_train_steps"])
+    p18 = phase_checks_and_campaign(device, small, counts, fit_root)
     # the CPU's sides of phases 12 and 14, run beside the later phases
     finish_eval()
     finish_replay()
@@ -6371,7 +6691,8 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + sum(p16[k]["min_dist_voxels"] for k in (
                       "ycb_fit", "profile_train", "profile_backward",
                       "geometry_nn"))
-                  + sum(v["min_dist_voxels"] for v in p17.values())),
+                  + sum(v["min_dist_voxels"] for v in p17.values())
+                  + sum(v["min_dist_voxels"] for v in p18.values())),
         launches_by_path=dict(icc_refine=icc_launches,
                               train_5_steps=train_launches["min_dist_voxels"],
                               scene_pipeline=pipeline_launches,
@@ -6400,7 +6721,7 @@ def run_phases(device, small, counts, native_build, fit_root):
                               profile_backward=p16["profile_backward"][
                                   "min_dist_voxels"],
                               **{k: v["min_dist_voxels"]
-                                 for k, v in p17.items()}),
+                                 for k, v in {**p17, **p18}.items()}),
         max_abs_err=max_err, ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
@@ -6432,7 +6753,8 @@ def run_phases(device, small, counts, native_build, fit_root):
                   + sum(p16[k]["nn_indices"] for k in (
                       "ycb_fit", "profile_train", "profile_backward",
                       "geometry_nn"))
-                  + sum(v["nn_indices"] for v in p17.values())),
+                  + sum(v["nn_indices"] for v in p17.values())
+                  + sum(v["nn_indices"] for v in p18.values())),
         launches_by_path=dict(train_5_steps=train_launches["nn_indices"],
                               icp=icp_launches,
                               serving_icp=serving_icp_launches,
@@ -6453,7 +6775,7 @@ def run_phases(device, small, counts, native_build, fit_root):
                                   "nn_indices"],
                               geometry_nn=p16["geometry_nn"]["nn_indices"],
                               **{k: v["nn_indices"]
-                                 for k, v in p17.items()}),
+                                 for k, v in {**p17, **p18}.items()}),
         max_abs_err=knn_err, ms=knn_timing["kernel_ms"],
         plain_ms=knn_timing["plain_ms"], bound_ms=knn_timing["bound_ms"],
         bound_by=knn_timing["bound_by"], library_ms=knn_timing["library_ms"],

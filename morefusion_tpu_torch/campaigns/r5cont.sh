@@ -1,0 +1,75 @@
+#!/bin/bash
+# Round-5 continuation, on the port (morefusion_tpu_torch): fresh-data
+# fine-tune of the hires winner.
+#
+# Warm start from the banked r5hires best (the port's
+# torch_r5hires_best_bf16.npz, else the JAX package's
+# r5hires_best_bf16.npz) and train on DOUBLE hires data: the seed-44000
+# set concatenated with a freshly generated seed-45000 set (the train
+# CLI's multi-source --data, the reference's ConcatenatedDataset pattern)
+# on a short cosine cycle at a lower peak LR.
+#
+# Waits for (a) the port's r5hires campaign to finish, (b) the seed-45000
+# reindexed generation, then packs it and trains. The guardian banks every
+# improvement as docs/results/torch_r5cont_best_bf16.npz.
+#
+# Usage: bash morefusion_tpu_torch/campaigns/r5cont.sh [RUN_DIR] [EPOCHS]
+set -u
+. "$(dirname "$0")/_common.sh"
+RUN="${1:-$RUNS/r5cont}"
+EPOCHS="${2:-12}"
+cd "$REPO"
+
+wait_log r5cont "$LOGS/torch_r5hires_campaign.log" \
+  "training complete\|giving up"
+
+while [ ! -f "$DATA/train_tex_hires_s45000_reindexed/meta.json" ]; do
+  echo "[r5cont] waiting for seed-45000 generation ..."
+  sleep 120
+done
+
+if [ ! -f "$DATA/train_tex_hires_s45000_packed/scalars.npz" ]; then
+  python -c "
+from morefusion_tpu_torch import datasets
+datasets.packed.pack_reindexed(
+    '$DATA/train_tex_hires_s45000_reindexed',
+    '$DATA/train_tex_hires_s45000_packed')
+"
+fi
+
+WARM="$(warm_start r5hires)"
+python -m morefusion_tpu_torch.cli.campaign_guardian \
+  --run-dir "$RUN" --tag torch_r5cont \
+  > "$LOGS/torch_r5cont_guardian.log" 2>&1 &
+
+RETRIES=0
+while true; do
+  rm -f "$RUN/leak_budget_exit"
+  torchrun --standalone --nproc_per_node "$NPROC" \
+    -m morefusion_tpu_torch.cli.train \
+    --out "$RUN" \
+    --data "$DATA/train_tex_hires_s44000_packed" \
+           "$DATA/train_tex_hires_s45000_packed" \
+    --val-data "$DATA/val_tex_hires_packed" \
+    --model singleview_3d --with-occupancy --loss add/add_s \
+    --min-visibility 0.8 --batch-size 16 --epochs "$EPOCHS" \
+    --lr 3e-5 --lr-schedule cosine --warmup-steps 200 --seed 0 \
+    --eval-interval 0.25 --rss-exit-gb 80 \
+    --resume --pretrained-model "$WARM"
+  code=$(train_code "$RUN" $?)
+  if [ "$code" -eq 42 ]; then
+    echo "[r5cont] RSS exit; relaunching with --resume"
+    continue
+  fi
+  if [ "$code" -eq 0 ]; then
+    echo "[r5cont] training complete"
+    exit 0
+  fi
+  RETRIES=$((RETRIES + 1))
+  if [ "$RETRIES" -gt 30 ]; then
+    echo "[r5cont] giving up after $RETRIES failures"
+    exit $code
+  fi
+  echo "[r5cont] cli.train exited $code; retry $RETRIES in 120s"
+  sleep 120
+done

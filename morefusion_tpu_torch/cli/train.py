@@ -17,6 +17,11 @@ Without ``--data`` a small synthetic set (16 / 4 frames) is generated
 under ``--out``. ``--model posenet`` trains the point-cloud baseline
 (``models.PoseNet`` at full width; ``--tiny`` and ``--bf16`` apply to
 SingleView3D only, as in JAX).
+
+On the leak-budget exit (``--rss-exit-gb``: the latest checkpoint saved,
+exit code 42, for a relaunch with ``--resume``) the run also leaves an
+empty ``leak_budget_exit`` file in ``--out``: ``torchrun`` reports a
+worker's exit code 42 as 1, and the campaign scripts read the file instead.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import os
 import sys
 
 import torch
+
+#: the file the leak-budget exit leaves in the run directory
+LEAK_EXIT_FILE = "leak_budget_exit"
 
 
 def parse_args(argv=None):
@@ -190,8 +198,7 @@ def main(argv=None):
     from ..training import loop
 
     # a no-op outside torchrun
-    parallel.maybe_initialize(backend="gloo" if args.device == "cpu"
-                              else None)
+    parallel.maybe_initialize(device=args.device)
     n_fg_class = 21
     with_occupancy = args.with_occupancy or "occupancy" in args.loss
     train_ds, val_ds, device_augment = build_datasets(args)
@@ -240,6 +247,7 @@ def main(argv=None):
         )
     except loop.LeakBudgetExit as e:
         print(f"leak-budget exit: {e}")
+        open(os.path.join(args.out, LEAK_EXIT_FILE), "w").close()
         raise SystemExit(42)
     print("final summary:", {k: round(v, 4) for k, v in summary.items()
                              if k.count("/") <= 2})

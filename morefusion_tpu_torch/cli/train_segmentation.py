@@ -223,8 +223,7 @@ def main(argv=None):
     from ..datasets.rgbd_pose_estimation.augmentation import augment_rgb
     from ..models.segmentation import UNetSegmentation
 
-    parallel.maybe_initialize(backend="gloo" if args.device == "cpu"
-                              else None)  # a no-op outside torchrun
+    parallel.maybe_initialize(device=args.device)  # a no-op outside torchrun
     mesh = parallel.data_mesh(args.device)
     primary = parallel.is_primary()
     ds = SyntheticInstanceSegmentationDataset(

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels: plain ``nvcc`` + ``ctypes``.
 
-Every ``.cu`` under ``csrc/`` exposes an ``extern "C"`` launcher, so it is
-compiled into one shared library with a plain C interface and no PyTorch
-headers (seconds, where an extension that includes ``torch/extension.h``
-takes minutes). The library is built at first use into ``_build/`` beside
-the package and rebuilt when a source is newer than it.
+Every ``.cu`` under ``csrc/`` exposes an ``extern "C"`` launcher, so each
+is compiled to an object (one ``nvcc`` a source, all started together) and
+the objects are linked into one shared library with a plain C interface
+and no PyTorch headers (seconds, where an extension that includes
+``torch/extension.h`` takes minutes). The library is built at first use
+into ``_build/`` beside the package and rebuilt when a source is newer
+than it.
 """
 
 from __future__ import annotations
@@ -16,16 +18,18 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libmfk.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: each source to an object
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+#: the objects into the library
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -49,29 +53,39 @@ def nvcc() -> str:
     return found
 
 
-def build(ptxas_verbose: bool = False):
-    """Compile every source into ``LIB_PATH``.
-
-    Returns ``(seconds, nvcc's stderr)``; raises ``RuntimeError`` carrying
-    the compiler's output on failure.
-    """
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0, proc.stderr
+            f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build(ptxas_verbose: bool = False):
+    """Compile every source to an object, one ``nvcc`` a source, all
+    started together, then link the objects into ``LIB_PATH``.
+
+    Returns ``(seconds, the compilers' output)``; raises ``RuntimeError``
+    carrying a compiler's output on failure.
+    """
+    BUILD_DIR.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    verbose = ["-Xptxas", "-v"] if ptxas_verbose else []
+    objs = [os.path.join(work, src.stem + ".o") for src in sources()]
+    cmds = [[nvcc(), *COMPILE_FLAGS, *verbose, "-c", "-o", obj, str(src)]
+            for obj, src in zip(objs, sources())]
+    tmp = os.path.join(work, LIB_PATH.name)
+    link = [nvcc(), *LINK_FLAGS, "-o", tmp, *objs]
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            out = "".join(pool.map(_run, cmds))
+        _run(link)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return time.perf_counter() - t0, out
 
 
 def _stale() -> bool:

@@ -41,6 +41,7 @@ def maybe_initialize(
     rank: Optional[int] = None,
     local_rank: Optional[int] = None,
     backend: Optional[str] = None,
+    device: str = "cuda",
 ) -> bool:
     """Initialize the default process group where a multi-process run is
     asked for, by ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
@@ -49,9 +50,10 @@ def maybe_initialize(
     it does nothing and returns False, so the same script runs in one
     process and under ``torchrun``.
 
-    The backend is ``nccl`` where CUDA is available and ``gloo`` otherwise,
-    unless ``backend`` names one; under ``nccl`` the process's current
-    device becomes ``cuda:LOCAL_RANK``. ``init_method`` defaults to
+    The backend follows the ``device`` the caller runs on: ``nccl`` for
+    ``"cuda"`` (the default) and ``gloo`` for the CPU, unless ``backend``
+    names one; under ``nccl`` the process's current device becomes
+    ``cuda:LOCAL_RANK``. ``init_method`` defaults to
     ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``).
     """
     if dist.is_initialized():
@@ -71,7 +73,7 @@ def maybe_initialize(
         raise ValueError(
             f"world size {world_size} needs an init_method or MASTER_ADDR")
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
     dist.init_process_group(
@@ -96,7 +98,7 @@ def initialize_single(device: str = "cuda") -> bool:
     their collectives at world size 1; returns whether it made one."""
     return maybe_initialize(
         init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
-        backend="nccl" if torch.device(device).type == "cuda" else "gloo")
+        device=device)
 
 
 def local_device(device: str = "cuda") -> torch.device:

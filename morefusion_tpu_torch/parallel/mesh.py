@@ -36,12 +36,11 @@ class DataMesh:
         return dist.is_initialized()
 
 
-def data_mesh(device: Optional[str] = None) -> DataMesh:
+def data_mesh(device: str = "cuda") -> DataMesh:
     """The mesh of the default process group (world size 1 and rank 0
-    without one) on ``device`` (default: ``cuda:LOCAL_RANK`` where CUDA is
-    available, else the CPU)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    without one) on ``device``: ``cuda:LOCAL_RANK`` for ``"cuda"`` (the
+    default, whether or not a card is present: using it without one
+    raises), the CPU only when the caller asks for ``"cpu"``."""
     return DataMesh(world_size=distributed.world_size(),
                     rank=distributed.rank(),
                     device=distributed.local_device(device))

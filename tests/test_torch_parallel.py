@@ -194,6 +194,37 @@ def test_maybe_initialize_is_a_noop_without_env(monkeypatch):
     assert TPD.local_device("cpu") == torch.device("cpu")
 
 
+def test_data_mesh_has_no_cpu_fallback(monkeypatch):
+    """Without a device the mesh is the card's, whether or not one is
+    present: here, with none, using it raises rather than running on the
+    CPU. The CPU only when the caller asks for it."""
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    mesh = TP.data_mesh()
+    assert mesh.device == torch.device("cuda", 0)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            torch.zeros(1, device=mesh.device)
+    assert TP.data_mesh("cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("device,backend", [("cuda", "nccl"),
+                                            ("cuda:0", "nccl"),
+                                            ("cpu", "gloo")])
+def test_backend_follows_the_device_asked_for(monkeypatch, device, backend):
+    """``maybe_initialize`` picks the backend from ``device``, not from
+    whether CUDA happens to be present; ``backend`` still wins."""
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda b, **kw: calls.append(b))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: None)
+    assert TP.maybe_initialize(init_method="tcp://127.0.0.1:1",
+                               world_size=2, rank=0, device=device)
+    assert TP.maybe_initialize(init_method="tcp://127.0.0.1:1",
+                               world_size=2, rank=0, device=device,
+                               backend="gloo")
+    assert calls == [backend, "gloo"]
+
+
 def test_oversized_object_raises_as_in_jax():
     from morefusion_tpu.parallel import distributed as jdist
 
