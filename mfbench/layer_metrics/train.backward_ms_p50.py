@@ -1,0 +1,8 @@
+"""Median interval on the device of the train step's backward (the span
+``trainer.backward``) in the traced stretch."""
+
+from mfbench import program_spans
+
+
+def read(run):
+    return program_spans.device_ms_p50(run, "trainer.backward")

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from .heads import PoseHeads, select_class
 from .layers import Linear
 from .pspnet import PSPNetExtractor
@@ -108,9 +109,10 @@ class PoseNet(nn.Module):
         """
         B, H, W, _ = rgb.shape
         mask = ~torch.isnan(pcd).any(dim=-1)
-        h_rgb = self.pspnet_extractor(
-            self.resnet_extractor(rgb), train=train,
-            generator=dropout_generator)  # (B, 32, H, W)
+        with annotate("model.backbone"):
+            h_rgb = self.pspnet_extractor(
+                self.resnet_extractor(rgb), train=train,
+                generator=dropout_generator)  # (B, 32, H, W)
         if sample_indices is None:
             sample_indices = sample_mask_indices(mask, self.n_point, generator)
         sample_indices = sample_indices.to(torch.int64)
@@ -127,7 +129,9 @@ class PoseNet(nn.Module):
             points_in = points
 
         feat = self.posenet_extractor(values, points_in)
-        cls_rot, cls_trans, cls_conf = self.heads(feat)
-        rot, trans, conf = select_class(cls_rot, cls_trans, cls_conf,
-                                        class_id.to(torch.int64) - 1)
-        return rot, points + trans, conf
+        with annotate("model.heads"):
+            cls_rot, cls_trans, cls_conf = self.heads(feat)
+            rot, trans, conf = select_class(cls_rot, cls_trans, cls_conf,
+                                            class_id.to(torch.int64) - 1)
+            trans = points + trans
+        return rot, trans, conf

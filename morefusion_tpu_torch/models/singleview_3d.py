@@ -30,6 +30,7 @@ from ..functions.voxelization import (
     average_voxelization_3d,
     interpolate_voxel_grid,
 )
+from ..utils.profiling import annotate
 from .heads import PoseHeads, select_class
 from .layers import Conv3d, Linear
 from .pspnet import PSPNetExtractor
@@ -159,9 +160,10 @@ class SingleView3D(nn.Module):
         B, H, W, _ = rgb.shape
         V = self.voxel_dim
         mask = ~torch.isnan(pcd).any(dim=-1)
-        h_rgb = self.pspnet_extractor(
-            self.resnet_extractor(rgb), train=train,
-            generator=dropout_generator)  # (B, 32, H, W)
+        with annotate("model.backbone"):
+            h_rgb = self.pspnet_extractor(
+                self.resnet_extractor(rgb), train=train,
+                generator=dropout_generator)  # (B, 32, H, W)
         if sample_indices is None:
             sample_indices = sample_mask_indices(mask, self.n_point, generator)
         sample_indices = sample_indices.to(torch.int64)
@@ -175,9 +177,11 @@ class SingleView3D(nn.Module):
             origin = compute_origin(pcd, mask, pitch, V)
         points = (points_cam - origin[:, None, :]) / pitch[:, None, None]
 
-        feat = self._extract(values, points, grid_nontarget_empty)
-        cls_rot, cls_trans, cls_conf = self.heads(feat)
-        rot, trans, conf = select_class(cls_rot, cls_trans, cls_conf,
-                                        class_id.to(torch.int64) - 1)
-        trans = points_cam + trans * pitch[:, None, None]
+        with annotate("model.voxel"):
+            feat = self._extract(values, points, grid_nontarget_empty)
+        with annotate("model.heads"):
+            cls_rot, cls_trans, cls_conf = self.heads(feat)
+            rot, trans, conf = select_class(cls_rot, cls_trans, cls_conf,
+                                            class_id.to(torch.int64) - 1)
+            trans = points_cam + trans * pitch[:, None, None]
         return rot, trans, conf

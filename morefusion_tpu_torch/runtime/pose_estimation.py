@@ -20,6 +20,7 @@ import torch
 from ..contrib.icp import ICPRegistration
 from ..functions.transforms import transformation_matrix
 from ..geometry import masks_to_bboxes
+from ..utils.profiling import annotate, count
 
 
 def _crop_instance_device(rgb_frame, pcd_frame, label, ins_ids, bboxes,
@@ -174,54 +175,62 @@ class PoseEstimationNode:
     ) -> Optional[dict]:
         """Enqueue the frame's pose stage on the device without waiting for
         it; :meth:`resolve` reads the result back."""
-        finite = ~np.isnan(pcd).any(axis=2)
-        V = self._voxel_dim
-        ids, bboxes, class_ids, pitches, grids = [], [], [], [], []
-        for ins_id, class_id in instance_to_class.items():
-            mask = instance_label == ins_id
-            if not (mask & finite).any():
-                continue
-            y1, x1, y2, x2 = masks_to_bboxes(mask).round().astype(int)
-            if (y2 - y1) * (x2 - x1) == 0:
-                continue
-            ids.append(ins_id)
-            bboxes.append((y1, x1, y2, x2))
-            class_ids.append(class_id)
-            pitches.append(self._voxel_pitch(V, class_id))
-            g = None if noentry_grids is None else noentry_grids.get(ins_id)
-            if g is None:
-                g = np.zeros((V, V, V), np.uint8)
-            elif g.dtype != np.uint8:
-                g = (np.clip(g, 0.0, 1.0) * 255.0).round().astype(np.uint8)
-            grids.append(g)
-        if not ids:
-            return None
-
+        with annotate("pose_node.select"):
+            finite = ~np.isnan(pcd).any(axis=2)
+            V = self._voxel_dim
+            ids, bboxes, class_ids, pitches, grids = [], [], [], [], []
+            for ins_id, class_id in instance_to_class.items():
+                mask = instance_label == ins_id
+                if not (mask & finite).any():
+                    continue
+                y1, x1, y2, x2 = masks_to_bboxes(mask).round().astype(int)
+                if (y2 - y1) * (x2 - x1) == 0:
+                    continue
+                ids.append(ins_id)
+                bboxes.append((y1, x1, y2, x2))
+                class_ids.append(class_id)
+                pitches.append(self._voxel_pitch(V, class_id))
+                g = (None if noentry_grids is None
+                     else noentry_grids.get(ins_id))
+                if g is None:
+                    g = np.zeros((V, V, V), np.uint8)
+                elif g.dtype != np.uint8:
+                    g = (np.clip(g, 0.0, 1.0) * 255.0).round().astype(
+                        np.uint8)
+                grids.append(g)
+            if not ids:
+                return None
         B = len(ids)
         take = list(range(B)) + [0] * ((1 << (B - 1).bit_length()) - B)
-        if rgb.dtype != np.uint8:
-            rgb = np.clip(rgb, 0, 255).astype(np.uint8)
-        dev = self._device
+        count("pose_node.instances", B)
+        count("pose_node.lanes", len(take))
+        with annotate("pose_node.upload"):
+            if rgb.dtype != np.uint8:
+                rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+            dev = self._device
 
-        def put(a, dtype=None):
-            a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
-            return torch.from_numpy(a).to(dev)
+            def put(a, dtype=None):
+                a = np.ascontiguousarray(
+                    a if dtype is None else a.astype(dtype))
+                return torch.from_numpy(a).to(dev)
 
-        idx = None
-        if sample_indices is not None:
-            idx = put(np.stack([sample_indices[ids[k]] for k in take]),
-                      np.int64)
-        T, conf = self._predict_frame(
-            put(rgb),
-            put(pcd, np.float32),
-            put(instance_label, np.int32),
-            put(np.asarray(ids, np.int32)[take]),
-            put(np.asarray(bboxes, np.int64)[take]),
-            put(np.asarray(class_ids, np.int64)[take]),
-            put(np.asarray(pitches, np.float32)[take]),
-            put(np.stack(grids)[take]),
-            idx,
-        )
+            idx = None
+            if sample_indices is not None:
+                idx = put(np.stack([sample_indices[ids[k]] for k in take]),
+                          np.int64)
+            inputs = (
+                put(rgb),
+                put(pcd, np.float32),
+                put(instance_label, np.int32),
+                put(np.asarray(ids, np.int32)[take]),
+                put(np.asarray(bboxes, np.int64)[take]),
+                put(np.asarray(class_ids, np.int64)[take]),
+                put(np.asarray(pitches, np.float32)[take]),
+                put(np.stack(grids)[take]),
+                idx,
+            )
+        with annotate("pose_node.predict"):
+            T, conf = self._predict_frame(*inputs)
         return dict(T=T, conf=conf, ids=ids, class_ids=class_ids, B=B,
                     pcd=pcd, instance_label=instance_label)
 
@@ -231,23 +240,25 @@ class PoseEstimationNode:
         self.last_icp_iterations = {}
         if handle is None:
             return {}
-        B = handle["B"]
-        Ts = handle["T"].cpu().numpy().astype(np.float64)[:B]
-        confs = handle["conf"].cpu().numpy()[:B]
-        pcd, label = handle["pcd"], handle["instance_label"]
-        results = {}
-        for k, ins_id in enumerate(handle["ids"]):
-            T = Ts[k]
-            class_id = int(handle["class_ids"][k])
-            if self._with_icp:
-                depth_points = pcd[(label == ins_id)
-                                   & ~np.isnan(pcd).any(axis=2)]
-                if len(depth_points) > 10:
-                    reg = ICPRegistration(depth_points,
-                                          self._cad_points(class_id), T,
-                                          device=self._device)
-                    T = reg.register()
-                    self.last_icp_iterations[ins_id] = reg.last_n_iterations
-            results[ins_id] = dict(T_cad2cam=T, class_id=class_id,
-                                   confidence=float(confs[k]))
-        return results
+        with annotate("pose_node.resolve"):
+            B = handle["B"]
+            Ts = handle["T"].cpu().numpy().astype(np.float64)[:B]
+            confs = handle["conf"].cpu().numpy()[:B]
+            pcd, label = handle["pcd"], handle["instance_label"]
+            results = {}
+            for k, ins_id in enumerate(handle["ids"]):
+                T = Ts[k]
+                class_id = int(handle["class_ids"][k])
+                if self._with_icp:
+                    depth_points = pcd[(label == ins_id)
+                                       & ~np.isnan(pcd).any(axis=2)]
+                    if len(depth_points) > 10:
+                        reg = ICPRegistration(depth_points,
+                                              self._cad_points(class_id), T,
+                                              device=self._device)
+                        T = reg.register()
+                        self.last_icp_iterations[ins_id] = (
+                            reg.last_n_iterations)
+                results[ins_id] = dict(T_cad2cam=T, class_id=class_id,
+                                       confidence=float(confs[k]))
+            return results

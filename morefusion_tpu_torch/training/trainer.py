@@ -41,6 +41,7 @@ import torch
 from ..datasets.ycb_video.class_names import symmetric_flags
 from ..models import losses as losses_module
 from ..parallel import DataMesh
+from ..utils.profiling import annotate
 from . import augment_device
 from . import transfer as transfer_module
 
@@ -246,41 +247,45 @@ def make_loss_fn(model, bank: CadPointBank,
     def loss_fn(batch, use_symmetric, *, train: bool = True,
                 sample_generator=None, dropout_generator=None,
                 augment_generator=None):
-        batch = _unpacked(batch, _device_of(model), transfer_schema)
+        with annotate("trainer.unpack"):
+            batch = _unpacked(batch, _device_of(model), transfer_schema)
         if augment:
-            batch["rgb"], batch["pcd"] = augment_device.augment_batch(
-                augment_generator, batch["rgb"], batch["pcd"])
-        quat, trans, conf = forward(
-            **_model_inputs(model, batch), generator=sample_generator,
-            train=train, dropout_generator=dropout_generator)
-        cid = batch["class_id"].long()
-        loss = losses_module.pose_loss(
-            quaternion_pred=quat,
-            translation_pred=trans,
-            confidence_pred=conf,
-            quaternion_true=batch["quaternion_true"],
-            translation_true=batch["translation_true"],
-            cad_points=bank.points[cid],
-            symmetric=bank.symmetric[cid] & use_symmetric,
-        )
-        metrics = {"loss_add": loss}
-        if occupancy_loss_term:
-            occ = losses_module.occupancy_loss(
+            with annotate("trainer.augment"):
+                batch["rgb"], batch["pcd"] = augment_device.augment_batch(
+                    augment_generator, batch["rgb"], batch["pcd"])
+        with annotate("trainer.forward"):
+            quat, trans, conf = forward(
+                **_model_inputs(model, batch), generator=sample_generator,
+                train=train, dropout_generator=dropout_generator)
+        with annotate("trainer.loss"):
+            cid = batch["class_id"].long()
+            loss = losses_module.pose_loss(
                 quaternion_pred=quat,
                 translation_pred=trans,
                 confidence_pred=conf,
-                solid_points=bank.solid_points[cid],
-                solid_sdf=bank.solid_sdf[cid],
-                solid_mask=bank.solid_mask[cid],
-                pitch=batch["pitch"],
-                origin=batch["origin"],
-                grid_target=batch["grid_target"],
-                grid_nontarget_empty=batch["grid_nontarget_empty"],
+                quaternion_true=batch["quaternion_true"],
+                translation_true=batch["translation_true"],
+                cad_points=bank.points[cid],
+                symmetric=bank.symmetric[cid] & use_symmetric,
             )
-            loss = loss + occ
-            metrics["loss_occupancy"] = occ
-        metrics["loss"] = loss
-        return loss, metrics
+            metrics = {"loss_add": loss}
+            if occupancy_loss_term:
+                occ = losses_module.occupancy_loss(
+                    quaternion_pred=quat,
+                    translation_pred=trans,
+                    confidence_pred=conf,
+                    solid_points=bank.solid_points[cid],
+                    solid_sdf=bank.solid_sdf[cid],
+                    solid_mask=bank.solid_mask[cid],
+                    pitch=batch["pitch"],
+                    origin=batch["origin"],
+                    grid_target=batch["grid_target"],
+                    grid_nontarget_empty=batch["grid_nontarget_empty"],
+                )
+                loss = loss + occ
+                metrics["loss_occupancy"] = occ
+            metrics["loss"] = loss
+            return loss, metrics
 
     return loss_fn
 
@@ -353,20 +358,23 @@ def _make_step(model, bank, mesh, occupancy_loss_term, augment,
                            transfer_schema, forward=ddp)
 
     def train_step(state: TrainState, batch, use_symmetric, seed: int = 0):
-        device = _device_of(state.model)
-        sample_gen, dropout_gen, augment_gen = step_generators(
-            seed, state.step, device, rank)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, use_symmetric,
-                                sample_generator=sample_gen,
-                                dropout_generator=dropout_gen,
-                                augment_generator=augment_gen)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return state, all_reduce_mean(metrics, mesh)
+        with annotate("trainer.step"):
+            device = _device_of(state.model)
+            sample_gen, dropout_gen, augment_gen = step_generators(
+                seed, state.step, device, rank)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = loss_fn(batch, use_symmetric,
+                                    sample_generator=sample_gen,
+                                    dropout_generator=dropout_gen,
+                                    augment_generator=augment_gen)
+            with annotate("trainer.backward"):
+                loss.backward()
+            with annotate("trainer.optimizer"):
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return state, all_reduce_mean(metrics, mesh)
 
     train_step.ddp = ddp
     return train_step
