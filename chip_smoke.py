@@ -4,9 +4,9 @@
     python3 chip_smoke.py               # on a machine with a CUDA card
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
-Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``
-and ``knn.cu``) with ``nvcc`` and makes phase 11's, phase 13's and phase
-16's data (the kernels compile beside it, one ``nvcc`` a source), then runs
+Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``,
+``knn.cu`` and ``resize.cu``) with ``nvcc`` and makes phase 11's, phase
+13's and phase 16's data (the kernels compile beside it, one ``nvcc`` a source), then runs
 eighteen phases, each printing one JSON line (phases 13 and 15 one a step,
 then their total) with ``elapsed_s``, the seconds since the start; the
 CPU's sides of phases 12 and 14 run in spawned processes beside the later
@@ -24,7 +24,9 @@ phases and print their lines (``evaluation_exact_replay``,
    winners and payloads identical in every case;
 2. serving: ``PoseEstimationNode.estimate`` with the committed occupancy
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
-   instances, against the same node on the CPU, then timed; then the node
+   instances, against the same node on the CPU (the card's PSPNet on
+   ``resize.cu``, the CPU's on ``F.interpolate``), with its bilinear resize
+   launches counted (seven a forward), then timed; then the node
    with ICP (``with_icp=True``, procedural CAD points) on the same frame,
    its knn launches counted (one per ICP iteration) and its frames timed
    (the frame's ellipsoids are no CAD shapes: this checks the wiring, not
@@ -60,8 +62,18 @@ phases and print their lines (``evaluation_exact_replay``,
    committed occupancy checkpoint: one step's loss and gradients with the
    kernels against the plain versions in deterministic mode, one step on
    the card against the CPU at B = 2, five timed steps with dropout on and
-   their kernel launches counted, and one eval step; the batch holds lanes
-   of a symmetric class, where ADD-S runs;
+   their kernel launches counted (the resize kernels' 14 a step: seven
+   resizes a forward, each with its backward), and one eval step; the
+   batch holds lanes of a symmetric class, where ADD-S runs; the plain
+   side of the kernel comparison also resizes with ``F.interpolate``.
+   Then the bilinear resize kernels (``resize.cu``) against
+   ``F.interpolate`` at PSPNet's seven B = 16 shapes (the pyramid's 512
+   channels from 1, 2, 3 and 6 up to 32^2; the x2 stages 1024 x 32^2,
+   256 x 64^2, 64 x 128^2), fp32: the forward's bits identical, the
+   backward within ``RESIZE_GRAD_RTOL`` of each input element's terms'
+   magnitudes (float64 reference) and identical on two runs; each
+   direction timed beside the plain versions, ``F.interpolate`` with its
+   backward, and the card's byte bound;
 7. knn kernel timing at the training shape, beside the plain version,
    ``torch.cdist`` + ``argmin`` and the card's bound, and at the ICP shape
    (phase 8's first object, with the d2 output) with the wrapper's host
@@ -327,12 +339,23 @@ TRAIN_B, TRAIN_POSES, TRAIN_CAD = 16, 1000, 500  # the JAX train shape
 
 # tolerances (see each phase)
 POSE_ATOL, CONF_ATOL = 1e-3, 1e-4
-# training: kernel vs plain in deterministic mode (only the bilinear
-# upsampling backward stays atomic); card vs CPU (other summation orders)
+# training: kernel vs plain in deterministic mode (only the plain side's
+# bilinear upsampling backward, F.interpolate's, stays atomic); card vs CPU
+# (other summation orders)
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL, STEP_GRAD_TOTAL = 1e-4, 1e-6
 CPU_LOSS_RTOL = 1e-4
 CPU_GRAD_RTOL, CPU_GRAD_TOTAL = 1e-3, 1e-5
+# the resize kernels' backward (phase 6): each input element's gradient
+# within this of the sum of its terms' magnitudes, against float64 (the
+# rounding of a sum taken in another order than F.interpolate's)
+RESIZE_GRAD_RTOL = 1e-6
+# PSPNet's resizes at 256^2 crops, (C, H, W, h, w): the pyramid, then the
+# three x2 stages
+RESIZE_SHAPES = ((512, 1, 1, 32, 32), (512, 2, 2, 32, 32),
+                 (512, 3, 3, 32, 32), (512, 6, 6, 32, 32),
+                 (1024, 32, 32, 64, 64), (256, 64, 64, 128, 128),
+                 (64, 128, 128, 256, 256))
 # ICP, card against CPU: the same correspondences (the knn kernel equals its
 # plain version bit for bit), Kabsch's sums in other orders; the CPU tests
 # hold the port to the JAX package within 1e-5
@@ -931,6 +954,7 @@ def bf16_serving(device, small):
 
 def phase_serving(device, small, counts):
     from morefusion_tpu_torch.datasets import ProceduralModels
+    from morefusion_tpu_torch.ops import resize
     from morefusion_tpu_torch.geometry import masks_to_bboxes
     from morefusion_tpu_torch.runtime import PoseEstimationNode
     from morefusion_tpu_torch.runtime.pose_estimation import (
@@ -967,10 +991,15 @@ def phase_serving(device, small, counts):
     node = PoseEstimationNode(model, voxel_pitch, image_size=S,
                               device=device)
     args = (rgb, pcd, label, instance_to_class, grids)
-    for c in counts:
+    for c in (*counts, resize.resize_bilinear):
         c.launches = 0
     got = node.estimate(*args, sample_indices=sample_indices)
-    launches = {c.__name__: c.launches for c in counts}
+    launches = {c.__name__: c.launches
+                for c in (*counts, resize.resize_bilinear)}
+    if device.type == "cuda":
+        n = launches["resize_bilinear"]
+        check(n > 0 and n % 7 == 0,
+              f"serving: {n} resize launches, not seven a forward")
 
     cpu_model = serving_model(small, seed=3)
     cpu_node = PoseEstimationNode(cpu_model, voxel_pitch, image_size=S,
@@ -1059,7 +1088,7 @@ def phase_serving(device, small, counts):
               bf16=dict(node_pose_vs_fp32=bf16_pose_gap,
                         estimate_ms_in_turns=node_ms,
                         **bf16_serving(device, small))))
-    return icp_launches["nn_indices"]
+    return icp_launches["nn_indices"], launches["resize_bilinear"]
 
 
 # --------------------------------------------------------------- phase 3
@@ -1490,9 +1519,101 @@ def train_setup(device, small):
     return models, bank, bank_s, batch
 
 
+def resize_bound_ms(x, g):
+    """Bytes a direction of the resize must move (the input read once and
+    the output written once, or the reverse) at the card's HBM rate."""
+    return (x.numel() + g.numel()) * x.element_size() / PEAK_BYTES_PER_S * 1e3
+
+
+def resize_vs_plain(device, small):
+    """The resize kernels against ``F.interpolate`` at PSPNet's seven
+    B = 16 shapes, fp32, each direction checked and timed; on the CPU
+    (where ``resize_bilinear`` is ``F.interpolate``) at B = 2 and a 64th of
+    the channels, untimed."""
+    from morefusion_tpu_torch.ops import resize as R
+
+    B, reps = (TRAIN_B, 20) if not small else (2, 0)
+    gen = torch.Generator(device).manual_seed(11)
+    rows, launches = [], 0
+    for C, H, W, h, w in RESIZE_SHAPES:
+        C = C if not small else max(1, C // 64)
+        x = torch.randn((B, C, H, W), generator=gen, device=device)
+        g = torch.randn((B, C, h, w), generator=gen, device=device)
+        before = R.resize_bilinear.launches
+        gx = []
+        for _ in range(2):
+            xr = x.detach().clone().requires_grad_(True)
+            y = R.resize_bilinear(xr, h, w)
+            y.backward(g)
+            gx.append(xr.grad)
+        launches += R.resize_bilinear.launches - before
+        y_lib = R.resize_bilinear_plain(x, h, w)
+        what = f"resize {C}x{H}x{W} -> {h}x{w}"
+        check(torch.equal(y.detach().view(torch.int32),
+                          y_lib.view(torch.int32)),
+              f"{what}: the forward's bits differ from F.interpolate's")
+        check(torch.equal(gx[0], gx[1]), f"{what}: two backwards differ")
+        x64 = x.double().requires_grad_(True)
+        R.resize_bilinear_plain(x64, h, w).backward(g.double())
+        terms = R.resize_bilinear_backward_plain(g.abs().double(), H, W)
+        err = (gx[0].double() - x64.grad).abs()
+        worst = float((err / (terms + 1e-30)).max())
+        check(worst <= RESIZE_GRAD_RTOL,
+              f"{what}: backward off by {worst} of its terms' magnitudes")
+        x_lib = x.detach().clone().requires_grad_(True)
+        R.resize_bilinear_plain(x_lib, h, w).backward(g)
+        lib_gap = float(torch.linalg.vector_norm(gx[0] - x_lib.grad)
+                        / torch.linalg.vector_norm(x_lib.grad))
+        row = dict(shape=[B, C, H, W, h, w], grad_err_of_terms=worst,
+                   grad_vs_interpolate_norm=lib_gap,
+                   bound_ms=resize_bound_ms(x, g))
+        del x64, terms, err, x_lib
+        if device.type == "cuda":
+            y_out, gx_out = torch.empty_like(y_lib), torch.empty_like(x)
+            row.update(
+                kernel_fwd_ms=cuda_ms(lambda: R._launch(
+                    "mfk_resize_forward", x, y_out, (H, W), (h, w)), reps),
+                kernel_bwd_ms=cuda_ms(lambda: R._launch(
+                    "mfk_resize_backward", g, gx_out, (H, W), (h, w)), reps),
+                plain_bwd_ms=cuda_ms(
+                    lambda: R.resize_bilinear_backward_plain(g, H, W), reps),
+                library_fwd_ms=cuda_ms(
+                    lambda: R.resize_bilinear_plain(x, h, w), reps),
+                library_bwd_ms=cuda_ms(
+                    lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                        g, [h, w], [B, C, H, W], False, None, None), reps))
+        rows.append(row)
+        del x, g, y, y_lib, gx
+    check(device.type != "cuda" or launches == 4 * len(RESIZE_SHAPES),
+          f"resize: {launches} launches for {len(RESIZE_SHAPES)} shapes, "
+          f"not two forwards and two backwards each")
+    total = {}
+    if device.type == "cuda":
+        fwd = sum(r["kernel_fwd_ms"] for r in rows)
+        bwd = sum(r["kernel_bwd_ms"] for r in rows)
+        lib_fwd = sum(r["library_fwd_ms"] for r in rows)
+        bound = sum(r["bound_ms"] for r in rows)
+        total = dict(
+            kernel_ms=fwd + bwd, kernel_fwd_ms=fwd, kernel_bwd_ms=bwd,
+            # the plain forward is F.interpolate's, the plain backward the
+            # gather (resize_bilinear_backward_plain)
+            plain_ms=lib_fwd + sum(r["plain_bwd_ms"] for r in rows),
+            library_ms=lib_fwd + sum(r["library_bwd_ms"] for r in rows),
+            library_fwd_ms=lib_fwd,
+            library_bwd_ms=sum(r["library_bwd_ms"] for r in rows),
+            bound_ms=2 * bound, bound_by="bytes")
+    return dict(shapes=rows, launches=launches,
+                max_grad_err_of_terms=max(r["grad_err_of_terms"]
+                                          for r in rows),
+                tolerance=dict(forward="bits", grad_of_terms=RESIZE_GRAD_RTOL,
+                               runs="identical"), **total)
+
+
 def phase_train(device, small, counts, setup):
+    from morefusion_tpu_torch.models import pspnet
     from morefusion_tpu_torch.ops import knn
     from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.ops import resize
     from morefusion_tpu_torch.training import trainer
 
     models, bank, bank_s, batch = setup
@@ -1504,8 +1625,9 @@ def phase_train(device, small, counts, setup):
 
     # (a) kernels against plain versions: same device, same generators, so
     # the same samples and dropout masks; deterministic mode makes the
-    # scatter-adds sum in one order (the bilinear upsampling backward has
-    # no deterministic CUDA version and stays atomic: warn_only)
+    # scatter-adds sum in one order (the plain side's bilinear upsampling
+    # backward, F.interpolate's, has no deterministic CUDA version and stays
+    # atomic: warn_only)
     loss_fn = trainer.make_loss_fn(model, bank)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1515,7 +1637,9 @@ def phase_train(device, small, counts, setup):
             with mock.patch.object(md, "min_dist_voxels",
                                    md.min_dist_voxels_plain), \
                     mock.patch.object(knn, "nn_indices",
-                                      knn.nn_indices_plain):
+                                      knn.nn_indices_plain), \
+                    mock.patch.object(pspnet, "resize_bilinear",
+                                      resize.resize_bilinear_plain):
                 plain = loss_and_grads(model, loss_fn, batch, train=True)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1544,7 +1668,7 @@ def phase_train(device, small, counts, setup):
     state = trainer.create_train_state(model)
     step = trainer.make_train_step(model, bank)
     n_steps = 5
-    for c in counts:
+    for c in (*counts, resize.resize_bilinear):
         c.launches = 0
     step_ms, losses = [], []
     for _ in range(n_steps):
@@ -1555,12 +1679,16 @@ def phase_train(device, small, counts, setup):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in metrics.items()})
         check(np.isfinite(loss), f"train: loss {loss} at step {state.step}")
-    launches = {c.__name__: c.launches for c in counts}
+    launches = {c.__name__: c.launches
+                for c in (*counts, resize.resize_bilinear)}
     if device.type == "cuda":
         for name in ("min_dist_voxels", "nn_indices"):
             check(launches[name] >= n_steps,
                   f"train: {launches[name]} {name} launches in {n_steps} "
                   f"steps")
+        check(launches["resize_bilinear"] == 14 * n_steps,
+              f"train: {launches['resize_bilinear']} resize launches in "
+              f"{n_steps} steps, not 14 a step")
 
     # (d) one eval step
     out = trainer.make_eval_step(model, bank)(batch)
@@ -1569,6 +1697,9 @@ def phase_train(device, small, counts, setup):
               f"eval: bad {k}")
     check(bool((out["add_s"] <= out["add"] + 1e-6).all()),
           "eval: ADD-S above ADD")
+    eval_add = [float(x) for x in out["add_or_add_s"]]
+    del state, step, out
+    resize_row = resize_vs_plain(device, small)
     emit(dict(phase="train", ok=True, device=str(device), batch=B, crop=S,
               n_point=model.n_point, voxel_dim=model.voxel_dim,
               symmetric_lanes=symmetric_lanes, bank_build_s=bank_s, kernel_vs_plain=vs_plain,
@@ -1584,8 +1715,8 @@ def phase_train(device, small, counts, setup):
               step_ms=step_ms, median_step_ms=float(np.median(step_ms)),
               launches=launches,
               launches_per_step={k: v / n_steps for k, v in launches.items()},
-              eval_add=[float(x) for x in out["add_or_add_s"]]))
-    return launches, float(np.median(step_ms))
+              eval_add=eval_add, resize=resize_row))
+    return launches, float(np.median(step_ms)), resize_row
 
 
 # --------------------------------------------------------------- phase 7
@@ -3554,15 +3685,18 @@ def phase_textured(device, small, counts, fit_root, data):
 
 def phase_posenet(device, small, counts, fit_root, setup):
     """(b) PoseNet at full width: one step with the kernels against the
-    plain versions in deterministic mode and one on the card against the
-    CPU at B = 2 (phase 6's batch and tolerances), then ``cli.train
+    plain versions (``F.interpolate`` for the resize) in deterministic mode
+    and one on the card against the CPU at B = 2 (phase 6's batch and
+    tolerances), then ``cli.train
     --model posenet`` on phase 11's packed sets (fp32, ``add/add_s``: the
     ``add -> add/add_s`` switch after an epoch, then two steps with ADD-S,
     one evaluation), its step ms and knn launches."""
     from morefusion_tpu_torch import datasets
     from morefusion_tpu_torch import models
+    from morefusion_tpu_torch.models import pspnet
     from morefusion_tpu_torch.ops import knn
     from morefusion_tpu_torch.ops import min_dist as md
+    from morefusion_tpu_torch.ops import resize
     from morefusion_tpu_torch.training import trainer
 
     models_bank, bank, _, batch = setup
@@ -3578,7 +3712,9 @@ def phase_posenet(device, small, counts, fit_root, setup):
             with mock.patch.object(md, "min_dist_voxels",
                                    md.min_dist_voxels_plain), \
                     mock.patch.object(knn, "nn_indices",
-                                      knn.nn_indices_plain):
+                                      knn.nn_indices_plain), \
+                    mock.patch.object(pspnet, "resize_bilinear",
+                                      resize.resize_bilinear_plain):
                 plain = loss_and_grads(model, loss_fn, batch, train=True)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -6634,14 +6770,16 @@ def run_phases(device, small, counts, native_build, fit_root):
     extra_scenes = [pipeline_frames(small, seed)[1]
                     for seed in EXTRA_SCENE_SEEDS[:1 if small else None]]
     max_err = phase_kernel_vs_plain(device, small, train_inputs)
-    serving_icp_launches = phase_serving(device, small, counts)
+    serving_icp_launches, serving_resize_launches = phase_serving(
+        device, small, counts)
     icc_launches = phase_icc(device, small, counts)
     if not small:
         check(icc_launches > 0, "icc: the min_dist kernel was never launched")
     timing = phase_kernel_timing(device, small, train_inputs)
     del train_inputs
     knn_err = phase_knn_vs_plain(device, small)
-    train_launches, bare_step_ms = phase_train(device, small, counts, setup)
+    train_launches, bare_step_ms, resize_row = phase_train(
+        device, small, counts, setup)
     knn_timing = phase_knn_timing(device, small,
                                   icp_clouds(icp_scene, device))
     icp_launches = phase_icp(device, small, counts, icp_scene, scene_models,
@@ -6783,6 +6921,26 @@ def run_phases(device, small, counts, native_build, fit_root):
         icp_shape={k: knn_timing["icp_shape"][k] for k in (
             "shape", "kernel_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+    ), dict(
+        name="resize", route="cuda",
+        source="morefusion_tpu_torch/csrc/resize.cu",
+        replaces=None,  # the JAX package resizes with jax.image.resize
+        launches=(serving_resize_launches
+                  + train_launches["resize_bilinear"]
+                  + resize_row["launches"]),
+        launches_by_path=dict(serving=serving_resize_launches,
+                              train_5_steps=train_launches["resize_bilinear"],
+                              kernel_vs_plain=resize_row["launches"]),
+        max_grad_err_of_terms=resize_row["max_grad_err_of_terms"],
+        ms=resize_row.get("kernel_ms"),
+        **{k: resize_row.get(k) for k in (
+            "kernel_ms", "kernel_fwd_ms", "kernel_bwd_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_fwd_ms",
+            "library_bwd_ms")},
+        shapes=[{k: r.get(k) for k in (
+            "shape", "kernel_fwd_ms", "kernel_bwd_ms", "bound_ms",
+            "library_fwd_ms", "library_bwd_ms")}
+            for r in resize_row["shapes"]],
     )]
     emit(dict(script_s=time.perf_counter() - _START))
     if small:

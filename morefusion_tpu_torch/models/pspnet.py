@@ -5,10 +5,11 @@ over the 1/8-resolution backbone feature, a bottleneck, three x2 bilinear
 upsampling stages, a 1x1 head and a log-softmax over channels. Bilinear
 resizing is ``F.interpolate(align_corners=False)``, which matches
 ``jax.image.resize(..., "bilinear")`` when upsampling, the only way it is
-used here. Dropout at 0.3, 0.15 and 0.15 after the pyramid and the first two
-upsampling stages is on only in training, with masks drawn from an explicit
-``torch.Generator``. The convolutions compute in ``compute_dtype``; the
-log-softmax runs in fp32. NCHW throughout.
+used here; on the card ``ops.resize`` computes it with a hand-written CUDA
+kernel, forward and backward. Dropout at 0.3, 0.15 and 0.15 after the
+pyramid and the first two upsampling stages is on only in training, with
+masks drawn from an explicit ``torch.Generator``. The convolutions compute
+in ``compute_dtype``; the log-softmax runs in fp32. NCHW throughout.
 """
 
 from __future__ import annotations
@@ -19,15 +20,12 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops.resize import resize_bilinear
 from .layers import Conv2d, PReLU
 
 
 # rates after the pyramid module and the first two upsampling stages
 DROPOUT_RATES = (0.3, 0.15, 0.15)
-
-
-def resize_bilinear(x, h, w):
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
 
 
 def dropout(x, rate: float, generator: torch.Generator):

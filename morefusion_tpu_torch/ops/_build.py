@@ -113,6 +113,10 @@ def load():
             lib.mfk_min_dist.restype = i32
             lib.mfk_knn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, ptr]
             lib.mfk_knn.restype = i32
+            for fn in (lib.mfk_resize_forward, lib.mfk_resize_backward):
+                fn.argtypes = [ptr, ptr, i32, ctypes.c_longlong, i32, i32,
+                               i32, i32, i32, ptr]
+                fn.restype = i32
             lib.mfk_error_string.argtypes = [i32]
             lib.mfk_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -221,19 +221,21 @@ def test_node_counts_instances_and_lanes_per_stretch():
         node_frame()
         node_frame()
     rec = profiling.recorded()
+    # and PSPNet's seven resizes a forward (ops/resize.py)
     assert rec["counters"] == {"pose_node.instances": 6,
-                               "pose_node.lanes": 8}
+                               "pose_node.lanes": 8, "resize.calls": 14}
     assert all(len(rec["device_ms"][n]) == 2 for n in NODE_SPANS)
     node_frame()
     with _profiler():
         node_frame()
     assert profiling.recorded()["counters"] == {"pose_node.instances": 3,
-                                                "pose_node.lanes": 4}
+                                                "pose_node.lanes": 4,
+                                                "resize.calls": 7}
     posenet_step()
     with _profiler():
         posenet_step()
     rec = profiling.recorded()
-    assert rec["counters"] == {}
+    assert rec["counters"] == {"resize.calls": 7}
     assert sorted(rec["device_ms"]) == sorted(_spans_of("posenet"))
 
 
