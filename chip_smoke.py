@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``,
-``knn.cu`` and ``resize.cu``) with ``nvcc`` and makes phase 11's, phase
+``knn.cu``, ``resize.cu``, ``roi_align.cu`` and ``nms.cu``) with ``nvcc`` and makes phase 11's, phase
 13's and phase 16's data (the kernels compile beside it, one ``nvcc`` a source), then runs
 eighteen phases, each printing one JSON line (phases 13 and 15 one a step,
 then their total) with ``elapsed_s``, the seconds since the start; the
@@ -73,7 +73,19 @@ phases and print their lines (``evaluation_exact_replay``,
    backward within ``RESIZE_GRAD_RTOL`` of each input element's terms'
    magnitudes (float64 reference) and identical on two runs; each
    direction timed beside the plain versions, ``F.interpolate`` with its
-   backward, and the card's byte bound;
+   backward, and the card's byte bound. Then Mask R-CNN's kernels at the ``maskrcnn_r50_fpn.serve.seg1``
+   cell's shapes (P2-P5 of an 800 x 1088 input, 256 channels): RoIAlign
+   (``roi_align.cu``: the box call, 1000 RoIs at 7 x 7, and the mask call,
+   8 RoIs at 14 x 14) within ``ROI_ALIGN_RTOL`` of ``roi_align_plain``, and
+   NMS (``nms.cu``: the proposals' five levels at 0.7, the detections'
+   1000 boxes of 21 labels at 0.5) with the keep flags of ``nms_plain``;
+   each identical on two runs, timed beside its plain version and its
+   bound (``mfbench/counts_maskrcnn.py``). Then Mask R-CNN on its main
+   path: the cell's model (weights and frozen BatchNorm statistics from a
+   seed) in ``MaskRCNNSegmentationNode``, four 480 x 640 frames of 5-8
+   objects after one to warm up, each launching RoIAlign twice, NMS twice
+   and the resize once and keeping as many instances as it has objects,
+   timed by the host clock.
 7. knn kernel timing at the training shape, beside the plain version,
    ``torch.cdist`` + ``argmin`` and the card's bound, and at the ICP shape
    (phase 8's first object, with the d2 output) with the wrapper's host
@@ -356,6 +368,20 @@ RESIZE_SHAPES = ((512, 1, 1, 32, 32), (512, 2, 2, 32, 32),
                  (512, 3, 3, 32, 32), (512, 6, 6, 32, 32),
                  (1024, 32, 32, 64, 64), (256, 64, 64, 128, 128),
                  (64, 128, 128, 256, 256))
+# Mask R-CNN's RoIAlign against its plain version (the same operations,
+# so within float32 rounding of the features' magnitude), and the pyramid
+# P2-P5 of the maskrcnn_r50_fpn.serve.seg1 cell (an 800 x 1088 input)
+ROI_ALIGN_RTOL = 1e-6
+MASKRCNN_LEVELS = ((200, 272), (100, 136), (50, 68), (25, 34))
+# Mask R-CNN's frames through its segmenter node: the cell's configuration
+# (narrow widths on a smaller input in the CPU rehearsal), the frames' object
+# counts (each frame keeps that many detections)
+MASKRCNN_CONFIG = "mfbench/configs/maskrcnn_r50_fpn.json"
+MASKRCNN_REHEARSAL_KWARGS = dict(
+    width=8, fpn_channels=16, representation=32, mask_channels=16,
+    min_size=160, max_size=266, rpn_pre_nms_top_n=50, rpn_post_nms_top_n=40,
+    box_candidates=60)
+MASKRCNN_FRAME_OBJECTS = (5, 6, 7, 8)
 # ICP, card against CPU: the same correspondences (the knn kernel equals its
 # plain version bit for bit), Kabsch's sums in other orders; the CPU tests
 # hold the port to the JAX package within 1e-5
@@ -1607,6 +1633,170 @@ def resize_vs_plain(device, small):
                                           for r in rows),
                 tolerance=dict(forward="bits", grad_of_terms=RESIZE_GRAD_RTOL,
                                runs="identical"), **total)
+
+
+def maskrcnn_boxes(r, n, hw=(800, 1066)):
+    """``n`` boxes of 2-700 px a side over the input, some past its edge."""
+    side = np.exp(r.uniform(np.log(2), np.log(700), (n, 2)))
+    cx, cy = r.uniform(-20, hw[1] + 20, n), r.uniform(-20, hw[0] + 20, n)
+    return torch.from_numpy(np.stack(
+        [cx - side[:, 0] / 2, cy - side[:, 1] / 2, cx + side[:, 0] / 2,
+         cy + side[:, 1] / 2], 1).astype(np.float32))
+
+
+def maskrcnn_kernels_vs_plain(device, small):
+    """Mask R-CNN's RoIAlign and NMS kernels against their plain versions
+    at the seg1 cell's shapes, each call checked and timed; on the CPU
+    (where both wrappers run the plain versions) at a 16th of the channels,
+    untimed."""
+    from mfbench import counts_maskrcnn as CM
+    from morefusion_tpu_torch.ops import nms as N
+    from morefusion_tpu_torch.ops import roi_align as RA
+
+    C, reps = (256, 20) if not small else (16, 0)
+    r = np.random.RandomState(13)
+    gen = torch.Generator(device).manual_seed(13)
+    feats = [torch.randn((1, C, h, w), generator=gen, device=device)
+             for h, w in MASKRCNN_LEVELS]
+    scale = max(float(f.abs().max()) for f in feats)
+    roi_rows, roi_launches = [], RA.roi_align.launches
+    for call, n, P in (("box", 1000, 7), ("mask", 8, 14)):
+        rois = maskrcnn_boxes(r, n).to(device)
+        got = [RA.roi_align(feats, rois, P) for _ in range(2)]
+        sync(device)
+        err = float((got[0] - RA.roi_align_plain(feats, rois, P)).abs()
+                    .max()) / scale
+        check(err <= ROI_ALIGN_RTOL,
+              f"roi_align {call}: {err} of the features' magnitude off "
+              f"its plain version")
+        check(torch.equal(got[0], got[1]), f"roi_align {call}: two runs "
+              f"differ")
+        ops, nbytes = CM.roi_align_work(rois.cpu().numpy(), MASKRCNN_LEVELS,
+                                        C, P)
+        row = dict(call=call, shape=[n, C, P, P], err_of_scale=err,
+                   bound_ms=max(ops / PEAK_FP32_FLOPS,
+                                nbytes / PEAK_BYTES_PER_S) * 1e3,
+                   bound_by="bytes" if nbytes / PEAK_BYTES_PER_S
+                   >= ops / PEAK_FP32_FLOPS else "operations")
+        if device.type == "cuda":
+            row.update(kernel_ms=cuda_ms(
+                lambda: RA.roi_align(feats, rois, P), reps),
+                plain_ms=cuda_ms(
+                    lambda: RA.roi_align_plain(feats, rois, P), 3))
+        roi_rows.append(row)
+    roi_launches = RA.roi_align.launches - roi_launches
+    nms_rows, nms_launches = [], N.nms.launches
+    sizes = [1000, 1000, 1000, 1000, 663]
+    starts = np.cumsum([0] + sizes[:-1]).tolist()
+    props = torch.cat([maskrcnn_boxes(r, n) for n in sizes])
+    props = torch.stack([props[:, 0].clamp(0, 1066),
+                         props[:, 1].clamp(0, 800),
+                         props[:, 2].clamp(0, 1066),
+                         props[:, 3].clamp(0, 800)], 1)
+    labels = torch.from_numpy(r.randint(1, 22, 1000).astype(np.int32))
+    for call, boxes, thr, kw, groups in (
+            ("proposals", props, 0.7, dict(groups=list(zip(starts, sizes))),
+             sizes),
+            ("detections", maskrcnn_boxes(r, 1000), 0.5,
+             dict(labels=labels), [1000])):
+        valid = torch.from_numpy(r.rand(len(boxes)) > 0.02)
+        want = N.nms_plain(boxes, thr, valid=valid, **kw)
+        dev_kw = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        args = (boxes.to(device), thr)
+        dev_kw["valid"] = valid.to(device)
+        got = [N.nms(*args, **dev_kw).cpu() for _ in range(2)]
+        check(torch.equal(got[0], want) and torch.equal(got[1], want),
+              f"nms {call}: keep flags differ from the greedy walk's")
+        ops, nbytes = CM.nms_work(groups, labels="labels" in kw)
+        row = dict(call=call, boxes=len(boxes), kept=int(want.sum()),
+                   bound_ms=max(ops / PEAK_FP32_FLOPS,
+                                nbytes / PEAK_BYTES_PER_S) * 1e3,
+                   bound_by="operations" if ops / PEAK_FP32_FLOPS
+                   >= nbytes / PEAK_BYTES_PER_S else "bytes")
+        if device.type == "cuda":
+            row.update(kernel_ms=cuda_ms(lambda: N.nms(*args, **dev_kw),
+                                         reps),
+                       plain_ms=cuda_ms(
+                           lambda: N.nms_plain(*args, **dev_kw), 1))
+        nms_rows.append(row)
+    nms_launches = N.nms.launches - nms_launches
+    out = dict(roi_align=dict(calls=roi_rows, launches=roi_launches,
+                              max_err_of_scale=max(x["err_of_scale"]
+                                                   for x in roi_rows),
+                              tolerance=ROI_ALIGN_RTOL),
+               nms=dict(calls=nms_rows, launches=nms_launches,
+                        tolerance="identical keep flags"))
+    for k in ("roi_align", "nms"):
+        rows = out[k]["calls"]
+        out[k]["bound_ms"] = sum(x["bound_ms"] for x in rows)
+        if device.type == "cuda":
+            out[k]["ms"] = sum(x["kernel_ms"] for x in rows)
+            out[k]["plain_ms"] = sum(x["plain_ms"] for x in rows)
+    frames = maskrcnn_frames(device, small)
+    for k in ("roi_align", "nms"):
+        out[k]["frame_launches"] = frames[k]
+    out["resize_frame_launches"] = frames["resize"]
+    out["frame_ms"] = frames["frame_ms"]
+    emit(dict(phase="maskrcnn_kernels", **out))
+    return out
+
+
+def maskrcnn_frames(device, small):
+    """Mask R-CNN on its main path: the cell's model (weights and frozen
+    BatchNorm statistics from a seed, as the cell makes them) in its
+    segmenter node, one 480 x 640 frame a count of ``MASKRCNN_FRAME_OBJECTS``
+    after one to warm up. Each frame must launch RoIAlign twice (box and
+    mask calls), NMS twice (proposals, detections) and the resize once, and
+    keep as many instances as asked for; the kernels' launches of the
+    counted frames, and their host-clock milliseconds (hand-over to the
+    label on the host)."""
+    from mfbench import generators
+    from mfbench.drivers import segment_frame
+    from morefusion_tpu_torch.models.maskrcnn import (
+        MaskRCNN,
+        MaskRCNNSegmentationNode,
+    )
+    from morefusion_tpu_torch.ops import nms as N
+    from morefusion_tpu_torch.ops import resize as RS
+    from morefusion_tpu_torch.ops import roi_align as RA
+
+    seed = 2**31 + 22
+    kw = read_json(MASKRCNN_CONFIG)["kwargs"]
+    if small:
+        kw = {**kw, **MASKRCNN_REHEARSAL_KWARGS}
+    with torch.device(device):
+        model = MaskRCNN(**kw)
+    segment_frame.frozen_bn(generators.load_weights(model, seed), seed)
+    node = MaskRCNNSegmentationNode(model, device=device)
+    counters = {"roi_align": RA.roi_align, "nms": N.nms,
+                "resize": RS.resize_bilinear}
+    per_frame = {"roi_align": 2, "nms": 2, "resize": 1}
+    launches = dict.fromkeys(counters, 0)
+    ms = []
+    for i, n_obj in enumerate((MASKRCNN_FRAME_OBJECTS[0],)
+                              + MASKRCNN_FRAME_OBJECTS):
+        rgb = make_frame(100 + i, n_obj=n_obj)[0]
+        before = {k: f.launches for k, f in counters.items()}
+        sync(device)
+        t0 = time.perf_counter()
+        label, classes = node(rgb, max_instances=n_obj)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(label.shape == rgb.shape[:2] and len(classes) == n_obj,
+              f"maskrcnn frame {i}: a {label.shape} label with "
+              f"{len(classes)} instances, not {n_obj}")
+        if i == 0:
+            continue
+        for k, f in counters.items():
+            got = f.launches - before[k]
+            want = per_frame[k] if device.type == "cuda" else 0
+            check(got == want, f"maskrcnn frame {i}: {got} {k} launches, "
+                  f"not {want}")
+            launches[k] += got
+    del node, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(launches, frame_ms=sorted(ms[1:]))
 
 
 def phase_train(device, small, counts, setup):
@@ -6780,6 +6970,7 @@ def run_phases(device, small, counts, native_build, fit_root):
     knn_err = phase_knn_vs_plain(device, small)
     train_launches, bare_step_ms, resize_row = phase_train(
         device, small, counts, setup)
+    maskrcnn_rows = maskrcnn_kernels_vs_plain(device, small)
     knn_timing = phase_knn_timing(device, small,
                                   icp_clouds(icp_scene, device))
     icp_launches = phase_icp(device, small, counts, icp_scene, scene_models,
@@ -6927,10 +7118,13 @@ def run_phases(device, small, counts, native_build, fit_root):
         replaces=None,  # the JAX package resizes with jax.image.resize
         launches=(serving_resize_launches
                   + train_launches["resize_bilinear"]
-                  + resize_row["launches"]),
+                  + resize_row["launches"]
+                  + maskrcnn_rows["resize_frame_launches"]),
         launches_by_path=dict(serving=serving_resize_launches,
                               train_5_steps=train_launches["resize_bilinear"],
-                              kernel_vs_plain=resize_row["launches"]),
+                              kernel_vs_plain=resize_row["launches"],
+                              maskrcnn_frames=maskrcnn_rows[
+                                  "resize_frame_launches"]),
         max_grad_err_of_terms=resize_row["max_grad_err_of_terms"],
         ms=resize_row.get("kernel_ms"),
         **{k: resize_row.get(k) for k in (
@@ -6941,7 +7135,18 @@ def run_phases(device, small, counts, native_build, fit_root):
             "shape", "kernel_fwd_ms", "kernel_bwd_ms", "bound_ms",
             "library_fwd_ms", "library_bwd_ms")}
             for r in resize_row["shapes"]],
-    )]
+    )] + [dict(
+        name=name, route="cuda",
+        source=f"morefusion_tpu_torch/csrc/{name}.cu",
+        replaces=None,  # the JAX package has no detector
+        launches=row["launches"] + row["frame_launches"],
+        launches_by_path=dict(maskrcnn_frames=row["frame_launches"],
+                              kernel_vs_plain=row["launches"]),
+        ms=row.get("ms"), plain_ms=row.get("plain_ms"),
+        bound_ms=row["bound_ms"],
+        calls=row["calls"], tolerance=row["tolerance"])
+        for name, row in maskrcnn_rows.items()
+        if name in ("roi_align", "nms")]
     emit(dict(script_s=time.perf_counter() - _START))
     if small:
         emit(dict(rehearsal_kernels=kernels))

@@ -10,6 +10,8 @@ from .convert_jax import variables_from_jax
 from .convert_torch import convert_torchvision_resnet18
 from .convert_torch import graft_resnet18
 from .heads import PoseHeads
+from .maskrcnn import MaskRCNN
+from .maskrcnn import MaskRCNNSegmentationNode
 from .posenet import PoseNet
 from .posenet import PoseNetExtractor
 from .heads import select_class

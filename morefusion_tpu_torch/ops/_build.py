@@ -117,6 +117,12 @@ def load():
                 fn.argtypes = [ptr, ptr, i32, ctypes.c_longlong, i32, i32,
                                i32, i32, i32, ptr]
                 fn.restype = i32
+            lib.mfk_roi_align.argtypes = [ptr, ptr, i32, ptr, i32, i32, ptr,
+                                          i32, ptr]
+            lib.mfk_roi_align.restype = i32
+            lib.mfk_nms.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
+                                    ctypes.c_float, ptr, ptr, i32, ptr]
+            lib.mfk_nms.restype = i32
             lib.mfk_error_string.argtypes = [i32]
             lib.mfk_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -23,8 +23,11 @@ Port of ``morefusion_tpu/utils/profiling.py`` on ``torch.profiler``:
 
 The program's spans are named by layer: ``trainer.*`` (the train step
 and its parts, ``training/trainer.py``), ``model.*`` (the models'
-branches) and ``pose_node.*`` (``runtime/pose_estimation.py``, with the
-counters ``pose_node.instances`` and ``pose_node.lanes``).
+branches), ``pose_node.*`` (``runtime/pose_estimation.py``, with the
+counters ``pose_node.instances`` and ``pose_node.lanes``) and
+``maskrcnn.*`` (``models/maskrcnn.py``: ``backbone``, ``rpn``, ``box``,
+``mask``, ``paste``, with the counters ``maskrcnn.proposals`` and
+``maskrcnn.detections``).
 """
 
 from __future__ import annotations
