@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu  # rehearsal on the CPU, reduced size
 
 Builds the CUDA kernels from ``morefusion_tpu_torch/csrc`` (``min_dist.cu``,
-``knn.cu``, ``resize.cu``, ``roi_align.cu`` and ``nms.cu``) with ``nvcc`` and makes phase 11's, phase
+``knn.cu``, ``resize.cu``, ``roi_align.cu``, ``nms.cu`` and ``instance_boxes.cu``) with ``nvcc`` and makes phase 11's, phase
 13's and phase 16's data (the kernels compile beside it, one ``nvcc`` a source), then runs
 eighteen phases, each printing one JSON line (phases 13 and 15 one a step,
 then their total) with ``elapsed_s``, the seconds since the start; the
@@ -26,7 +26,8 @@ phases and print their lines (``evaluation_exact_replay``,
    checkpoint at full width on one synthetic 480x640 RGB-D frame with four
    instances, against the same node on the CPU (the card's PSPNet on
    ``resize.cu``, the CPU's on ``F.interpolate``), with its bilinear resize
-   launches counted (seven a forward), then timed; then the node
+   launches counted (seven a forward) and its selection kernel's
+   (``instance_boxes.cu``, one a frame), then timed; then the node
    with ICP (``with_icp=True``, procedural CAD points) on the same frame,
    its knn launches counted (one per ICP iteration) and its frames timed
    (the frame's ellipsoids are no CAD shapes: this checks the wiring, not
@@ -85,7 +86,13 @@ phases and print their lines (``evaluation_exact_replay``,
    seed) in ``MaskRCNNSegmentationNode``, four 480 x 640 frames of 5-8
    objects after one to warm up, each launching RoIAlign twice, NMS twice
    and the resize once and keeping as many instances as it has objects,
-   timed by the host clock.
+   timed by the host clock. Then the pose node's selection kernel
+   (``instance_boxes.cu``) on a 480 x 640 frame of 8 instances and ten
+   ids, two of them absent: the boxes and finite counts of
+   ``instance_boxes_plain``, bit for bit, on two runs; its device time a
+   call from a profiler trace (its two memsets and its kernel) and its
+   host time a call, beside its plain version's device time and wall on
+   the card, its byte bound and the host rule the node used before it.
 7. knn kernel timing at the training shape, beside the plain version,
    ``torch.cdist`` + ``argmin`` and the card's bound, and at the ICP shape
    (phase 8's first object, with the d2 output) with the wrapper's host
@@ -981,6 +988,7 @@ def bf16_serving(device, small):
 def phase_serving(device, small, counts):
     from morefusion_tpu_torch.datasets import ProceduralModels
     from morefusion_tpu_torch.ops import resize
+    from morefusion_tpu_torch.ops.instance_boxes import instance_boxes
     from morefusion_tpu_torch.geometry import masks_to_bboxes
     from morefusion_tpu_torch.runtime import PoseEstimationNode
     from morefusion_tpu_torch.runtime.pose_estimation import (
@@ -1017,15 +1025,17 @@ def phase_serving(device, small, counts):
     node = PoseEstimationNode(model, voxel_pitch, image_size=S,
                               device=device)
     args = (rgb, pcd, label, instance_to_class, grids)
-    for c in (*counts, resize.resize_bilinear):
+    for c in (*counts, resize.resize_bilinear, instance_boxes):
         c.launches = 0
     got = node.estimate(*args, sample_indices=sample_indices)
     launches = {c.__name__: c.launches
-                for c in (*counts, resize.resize_bilinear)}
+                for c in (*counts, resize.resize_bilinear, instance_boxes)}
     if device.type == "cuda":
         n = launches["resize_bilinear"]
         check(n > 0 and n % 7 == 0,
               f"serving: {n} resize launches, not seven a forward")
+        n = launches["instance_boxes"]
+        check(n == 1, f"serving: {n} instance_boxes launches in one frame")
 
     cpu_model = serving_model(small, seed=3)
     cpu_node = PoseEstimationNode(cpu_model, voxel_pitch, image_size=S,
@@ -1114,7 +1124,8 @@ def phase_serving(device, small, counts):
               bf16=dict(node_pose_vs_fp32=bf16_pose_gap,
                         estimate_ms_in_turns=node_ms,
                         **bf16_serving(device, small))))
-    return icp_launches["nn_indices"], launches["resize_bilinear"]
+    return (icp_launches["nn_indices"], launches["resize_bilinear"],
+            launches["instance_boxes"])
 
 
 # --------------------------------------------------------------- phase 3
@@ -1740,6 +1751,60 @@ def maskrcnn_kernels_vs_plain(device, small):
     out["frame_ms"] = frames["frame_ms"]
     emit(dict(phase="maskrcnn_kernels", **out))
     return out
+
+
+def instance_boxes_vs_plain(device, small):
+    """The pose node's selection kernel (``csrc/instance_boxes.cu``)
+    against its plain version on a frame of the serving cell's shape (480 x
+    640, 8 instances, 2% holes) and its ids with two that have no pixel:
+    the same bits, twice; each call's device time from a profiler trace
+    (the launch's host work bounds calls queued back to back, so CUDA
+    events between them would time the host), beside the host rule the
+    node used before the kernel (a full-frame mask, a finite test and
+    ``masks_to_bboxes`` an instance). On the CPU at a quarter of the side,
+    untimed."""
+    from morefusion_tpu_torch.geometry import masks_to_bboxes
+    from morefusion_tpu_torch.ops import instance_boxes as IB
+
+    H, W = (480, 640) if not small else (120, 160)
+    _, pcd, label = make_frame(23, H, W, n_obj=8)
+    ids = np.array([1, 2, 3, 4, 5, 6, 7, 8, 40, 41], np.int32)
+    host = [torch.from_numpy(a) for a in (label, pcd, ids)]
+    want = IB.instance_boxes_plain(*host)
+    args = [t.to(device) for t in host]
+    launches = IB.instance_boxes.launches
+    got = [IB.instance_boxes(*args).cpu() for _ in range(2)]
+    check(all(torch.equal(g, want) for g in got),
+          "instance_boxes: the kernel's boxes differ from its plain version's")
+
+    def host_rule():
+        finite = ~np.isnan(pcd).any(axis=2)
+        for ins_id in ids:
+            mask = label == ins_id
+            (mask & finite).any()
+            masks_to_bboxes(mask)
+
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host_rule()
+    nbytes = label.nbytes + pcd.nbytes + ids.nbytes + 4 * want.numel()
+    row = dict(phase="instance_boxes", shape=[H, W], ids=len(ids),
+               kept=int((want[:, 4] > 0).sum()), identical=True,
+               host_rule_ms=(time.perf_counter() - t0) * 1e3 / 5,
+               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    if device.type == "cuda":
+        kernel = profile_calls(lambda: IB.instance_boxes(*args), device, 50)
+        plain = profile_calls(lambda: IB.instance_boxes_plain(*args), device,
+                              10)
+        row.update(
+            kernel_ms=kernel["card_busy_ms"],
+            kernel_ops_per_call=kernel["kernels_per_call"],
+            kernel_host_ms=host_ms(lambda: IB.instance_boxes(*args), 50),
+            plain_ms=plain["card_busy_ms"], plain_wall_ms=plain["wall_ms"],
+            plain_ops_per_call=plain["kernels_per_call"])
+    row["launches"] = IB.instance_boxes.launches - launches
+    emit(row)
+    return row
 
 
 def maskrcnn_frames(device, small):
@@ -6960,8 +7025,8 @@ def run_phases(device, small, counts, native_build, fit_root):
     extra_scenes = [pipeline_frames(small, seed)[1]
                     for seed in EXTRA_SCENE_SEEDS[:1 if small else None]]
     max_err = phase_kernel_vs_plain(device, small, train_inputs)
-    serving_icp_launches, serving_resize_launches = phase_serving(
-        device, small, counts)
+    (serving_icp_launches, serving_resize_launches,
+     serving_boxes_launches) = phase_serving(device, small, counts)
     icc_launches = phase_icc(device, small, counts)
     if not small:
         check(icc_launches > 0, "icc: the min_dist kernel was never launched")
@@ -6971,6 +7036,7 @@ def run_phases(device, small, counts, native_build, fit_root):
     train_launches, bare_step_ms, resize_row = phase_train(
         device, small, counts, setup)
     maskrcnn_rows = maskrcnn_kernels_vs_plain(device, small)
+    boxes_row = instance_boxes_vs_plain(device, small)
     knn_timing = phase_knn_timing(device, small,
                                   icp_clouds(icp_scene, device))
     icp_launches = phase_icp(device, small, counts, icp_scene, scene_models,
@@ -7146,7 +7212,17 @@ def run_phases(device, small, counts, native_build, fit_root):
         bound_ms=row["bound_ms"],
         calls=row["calls"], tolerance=row["tolerance"])
         for name, row in maskrcnn_rows.items()
-        if name in ("roi_align", "nms")]
+        if name in ("roi_align", "nms")] + [dict(
+        name="instance_boxes", route="cuda",
+        source="morefusion_tpu_torch/csrc/instance_boxes.cu",
+        replaces=None,  # the JAX package selects the instances on the host
+        launches=serving_boxes_launches + boxes_row["launches"],
+        launches_by_path=dict(serving=serving_boxes_launches,
+                              kernel_vs_plain=boxes_row["launches"]),
+        ms=boxes_row.get("kernel_ms"), plain_ms=boxes_row.get("plain_ms"),
+        **{k: boxes_row.get(k) for k in (
+            "bound_ms", "bound_by", "kernel_host_ms", "plain_wall_ms",
+            "host_rule_ms")})]
     emit(dict(script_s=time.perf_counter() - _START))
     if small:
         emit(dict(rehearsal_kernels=kernels))

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.constants import device_constant
+
 
 def _dims3(dimensions):
     if isinstance(dimensions, int):
@@ -22,6 +24,14 @@ def _dims3(dimensions):
     return dims
 
 
+def _on_device(v, dtype, device):
+    """A tensor on ``device``; host numbers through :func:`device_constant`,
+    since a copy of them to a card would wait for its queued work."""
+    if isinstance(v, torch.Tensor):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+    return device_constant(v, dtype, device)
+
+
 def _voxel_ids(points, batch_indices, batch_size, origin, pitch, dims):
     """``(linear voxel id (P,) int64, valid (P,), n_voxels)``: each point's
     nearest voxel; NaN and out-of-bounds points go to the dump id
@@ -30,10 +40,10 @@ def _voxel_ids(points, batch_indices, batch_size, origin, pitch, dims):
     device = points.device
     finite = ~torch.isnan(points).any(dim=-1)
     points = torch.nan_to_num(points)
-    origin = torch.as_tensor(origin, dtype=points.dtype, device=device)
-    pitch = torch.as_tensor(pitch, dtype=points.dtype, device=device)
+    origin = _on_device(origin, points.dtype, device)
+    pitch = _on_device(pitch, points.dtype, device)
     idx = torch.round((points - origin) / pitch).to(torch.int64)
-    dims_t = torch.tensor([X, Y, Z], device=device)
+    dims_t = device_constant((X, Y, Z), torch.int64, device)
     valid = ((idx >= 0) & (idx < dims_t)).all(dim=-1) & finite
     n_voxels = batch_size * X * Y * Z
     lin = ((batch_indices.to(torch.int64) * X + idx[:, 0]) * Y
@@ -131,7 +141,7 @@ def max_voxelization_3d(
     return grid
 
 
-_CORNERS = [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)]
+_CORNERS = tuple((i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1))
 
 
 def interpolate_voxel_grid(grid, points, batch_indices) -> torch.Tensor:
@@ -143,12 +153,12 @@ def interpolate_voxel_grid(grid, points, batch_indices) -> torch.Tensor:
     lo = torch.floor(points)
     frac = points - lo
     lo = lo.to(torch.int64)
-    offsets = torch.tensor(_CORNERS, device=grid.device)  # (8, 3)
+    offsets = device_constant(_CORNERS, torch.int64, grid.device)  # (8, 3)
     corners = lo[:, None, :] + offsets[None]  # (P, 8, 3)
     w = torch.where(offsets[None] == 1, frac[:, None, :],
                     1.0 - frac[:, None, :])
     weights = torch.prod(w, dim=-1)  # (P, 8)
-    dims = torch.tensor([X, Y, Z], device=grid.device)
+    dims = device_constant((X, Y, Z), torch.int64, grid.device)
     in_bounds = ((corners >= 0) & (corners < dims)).all(dim=-1)
     safe = torch.minimum(corners.clamp_min(0), dims - 1)
     b = batch_indices.to(torch.int64)[:, None]

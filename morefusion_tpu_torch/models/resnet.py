@@ -23,6 +23,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..utils.constants import device_constant
 from .layers import Conv2d, FrozenBatchNorm2d
 
 MEAN_RGB = (0.485, 0.456, 0.406)
@@ -31,8 +32,8 @@ STD_RGB = (0.229, 0.224, 0.225)
 
 def normalize_rgb(x: torch.Tensor) -> torch.Tensor:
     """uint8-range ``(..., 3)`` RGB -> ImageNet-normalized float32."""
-    mean = torch.tensor(MEAN_RGB, dtype=torch.float32, device=x.device)
-    std = torch.tensor(STD_RGB, dtype=torch.float32, device=x.device)
+    mean = device_constant(MEAN_RGB, torch.float32, x.device)
+    std = device_constant(STD_RGB, torch.float32, x.device)
     return (x.to(torch.float32) / 255.0 - mean) / std
 
 

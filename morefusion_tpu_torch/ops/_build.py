@@ -123,6 +123,9 @@ def load():
             lib.mfk_nms.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
                                     ctypes.c_float, ptr, ptr, i32, ptr]
             lib.mfk_nms.restype = i32
+            lib.mfk_instance_boxes.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                               ptr, ptr, i32, ptr]
+            lib.mfk_instance_boxes.restype = i32
             lib.mfk_error_string.argtypes = [i32]
             lib.mfk_error_string.restype = ctypes.c_char_p
             _LIB = lib

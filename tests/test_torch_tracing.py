@@ -28,7 +28,9 @@ torch.set_num_threads(2)
 N_CLASS, N_POINT, S, V = 21, 32, 48, 32
 STEP_CHILDREN = ("trainer.unpack", "trainer.augment", "trainer.forward",
                  "trainer.loss", "trainer.backward", "trainer.optimizer")
-NODE_SPANS = ("pose_node.select", "pose_node.upload", "pose_node.predict",
+# in the order a frame runs them: the one copy, then the selection on the
+# device's copy of the frame
+NODE_SPANS = ("pose_node.upload", "pose_node.select", "pose_node.predict",
               "pose_node.resolve")
 MODEL_SPANS = {"singleview3d": ("model.backbone", "model.voxel",
                                 "model.heads"),
@@ -222,13 +224,16 @@ def test_node_counts_instances_and_lanes_per_stretch():
         node_frame()
     rec = profiling.recorded()
     # and PSPNet's seven resizes a forward (ops/resize.py)
-    assert rec["counters"] == {"pose_node.instances": 6,
+    # (the CPU node selects with the plain version: no pose_node.select_kernel)
+    assert rec["counters"] == {"pose_node.frames": 2,
+                               "pose_node.instances": 6,
                                "pose_node.lanes": 8, "resize.calls": 14}
     assert all(len(rec["device_ms"][n]) == 2 for n in NODE_SPANS)
     node_frame()
     with _profiler():
         node_frame()
-    assert profiling.recorded()["counters"] == {"pose_node.instances": 3,
+    assert profiling.recorded()["counters"] == {"pose_node.frames": 1,
+                                                "pose_node.instances": 3,
                                                 "pose_node.lanes": 4,
                                                 "resize.calls": 7}
     posenet_step()
