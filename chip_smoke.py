@@ -343,15 +343,14 @@ from unittest import mock
 import numpy as np
 import torch
 
+from mfbench.counts import (PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, knn_work,
+                            least_seconds, min_dist_work)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "docs", "results", "occ_best_bf16.npz")
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # instruction issue of the CUDA cores: 132 SMs x 128 lanes x 1.98 GHz boost
 ISSUE_SLOTS_PER_S = 132 * 128 * 1.98e9
-KNN_FLOPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per query-reference pair
 
 ROOT_DIMS = (32, 32, 32)  # the ICC grid
 TRAIN_B, TRAIN_POSES, TRAIN_CAD = 16, 1000, 500  # the JAX train shape
@@ -541,30 +540,12 @@ def min_dist_inputs(seed, B, P, case, device):
     return tuple(torch.from_numpy(a).to(device) for a in (ip, valid, payload))
 
 
-def min_dist_pairs(ip, valid, dims):
-    """Voxel-point pairs of one call: every voxel against every valid,
-    non-NaN point."""
-    return int(np.prod(dims)) * int((valid & ~torch.isnan(ip).any(-1)).sum())
-
-
-def min_dist_bound(ip, valid, dims):
-    """Least time (ms) on an H100 for one call on these inputs, and what
-    bounds it: the larger of the fp32 operations over the fp32 peak and
-    the bytes moved once over the memory rate. The operations are those of
-    the separable sum: for each valid point, a subtraction and a square per
-    distinct i, j and k, one add per (i, j), and one add and one min per
-    voxel."""
-    B, P, _ = ip.shape
-    X, Y, Z = dims
-    V = X * Y * Z
-    n_valid = int((valid & ~torch.isnan(ip).any(-1)).sum())
-    ops = n_valid * (2 * V + 2 * (X + Y + Z) + X * Y)
-    ops_s = ops / PEAK_FP32_FLOPS
-    bytes_moved = B * P * (3 * 4 + 1 + 4) + B * V * (4 + 4 + 4)
-    bytes_s = bytes_moved / PEAK_BYTES_PER_S
-    if ops_s >= bytes_s:
-        return ops_s * 1e3, "operations"
-    return bytes_s * 1e3, "bytes"
+def bound(ops, bytes_moved):
+    """Least time (ms) on an H100 for work of ``ops`` fp32 operations and
+    ``bytes_moved`` bytes (``mfbench/counts.py``), and what bounds it."""
+    by_ops = ops / PEAK_FP32_FLOPS >= bytes_moved / PEAK_BYTES_PER_S
+    return (least_seconds(ops, bytes_moved) * 1e3,
+            "operations" if by_ops else "bytes")
 
 
 def eval_min_dist_inputs(seed, case, N, M, V, device):
@@ -1280,8 +1261,10 @@ def min_dist_timing(device, ip, valid, payload, reps, dims=ROOT_DIMS,
     from morefusion_tpu_torch.ops import min_dist as md
 
     B, P, _ = ip.shape
-    bound_ms, bound_by = min_dist_bound(ip, valid, dims)
-    pairs = min_dist_pairs(ip, valid, dims)
+    n_valid = int((valid & ~torch.isnan(ip).any(-1)).sum())
+    bound_ms, bound_by = bound(*min_dist_work(B, P, dims, n_valid))
+    # voxel-point pairs: every voxel against every valid, non-NaN point
+    pairs = int(np.prod(dims)) * n_valid
     row = dict(shape=dict(B=B, P=P, dims=list(dims)), pairs=pairs,
                bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
@@ -1382,20 +1365,6 @@ def knn_inputs(seed, B, R, Q, case, device):
 def random_rotation_near(g, scale):
     a = np.linalg.qr(np.eye(3) + g.normal(0, scale, (3, 3)))[0]
     return a * np.sign(np.diag(a))[None]
-
-
-def knn_bound(ref, query, with_d2=False):
-    """Least time (ms) on an H100 for one knn call on these inputs: every
-    query-reference pair at 8 fp32 flops, against reading the inputs and
-    writing the indices (and the winners' d2) once."""
-    B, R, _ = ref.shape
-    Q = query.shape[1]
-    ops_s = KNN_FLOPS_PER_PAIR * B * Q * R / PEAK_FP32_FLOPS
-    out_bytes = B * Q * (8 if with_d2 else 4)
-    bytes_s = (B * (Q + R) * 3 * 4 + out_bytes) / PEAK_BYTES_PER_S
-    if ops_s >= bytes_s:
-        return ops_s * 1e3, "operations"
-    return bytes_s * 1e3, "bytes"
 
 
 def chosen_d2(ref, query, idx):
@@ -1684,11 +1653,9 @@ def maskrcnn_kernels_vs_plain(device, small):
               f"differ")
         ops, nbytes = CM.roi_align_work(rois.cpu().numpy(), MASKRCNN_LEVELS,
                                         C, P)
+        bound_ms, bound_by = bound(ops, nbytes)
         row = dict(call=call, shape=[n, C, P, P], err_of_scale=err,
-                   bound_ms=max(ops / PEAK_FP32_FLOPS,
-                                nbytes / PEAK_BYTES_PER_S) * 1e3,
-                   bound_by="bytes" if nbytes / PEAK_BYTES_PER_S
-                   >= ops / PEAK_FP32_FLOPS else "operations")
+                   bound_ms=bound_ms, bound_by=bound_by)
         if device.type == "cuda":
             row.update(kernel_ms=cuda_ms(
                 lambda: RA.roi_align(feats, rois, P), reps),
@@ -1720,11 +1687,9 @@ def maskrcnn_kernels_vs_plain(device, small):
         check(torch.equal(got[0], want) and torch.equal(got[1], want),
               f"nms {call}: keep flags differ from the greedy walk's")
         ops, nbytes = CM.nms_work(groups, labels="labels" in kw)
+        bound_ms, bound_by = bound(ops, nbytes)
         row = dict(call=call, boxes=len(boxes), kept=int(want.sum()),
-                   bound_ms=max(ops / PEAK_FP32_FLOPS,
-                                nbytes / PEAK_BYTES_PER_S) * 1e3,
-                   bound_by="operations" if ops / PEAK_FP32_FLOPS
-                   >= nbytes / PEAK_BYTES_PER_S else "bytes")
+                   bound_ms=bound_ms, bound_by=bound_by)
         if device.type == "cuda":
             row.update(kernel_ms=cuda_ms(lambda: N.nms(*args, **dev_kw),
                                          reps),
@@ -1985,7 +1950,7 @@ def knn_icp_timing(device, ref, query):
 
     B, R, _ = ref.shape
     Q = query.shape[1]
-    bound_ms, bound_by = knn_bound(ref, query, with_d2=True)
+    bound_ms, bound_by = bound(*knn_work(B, R, Q, with_d2=True))
     row = dict(shape=dict(B=B, Q=Q, R=R), pairs=B * Q * R,
                bound_ms=bound_ms, bound_by=bound_by)
     if device.type != "cuda":
@@ -2014,7 +1979,7 @@ def phase_knn_timing(device, small, icp_clouds):
     B, M, N = ((TRAIN_B, TRAIN_POSES, TRAIN_CAD) if not small
                else (2, 20, 50))
     ref, query = knn_inputs(100, B, N, M * N, "train", device)
-    bound_ms, bound_by = knn_bound(ref, query)
+    bound_ms, bound_by = bound(*knn_work(B, N, M * N))
     pairs = B * M * N * N
     row = dict(phase="knn_timing", shape=dict(B=B, Q=M * N, R=N),
                pairs=pairs, bound_ms=bound_ms, bound_by=bound_by,

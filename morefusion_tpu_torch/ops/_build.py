@@ -7,6 +7,14 @@ and no PyTorch headers (seconds, where an extension that includes
 ``torch/extension.h`` takes minutes). The library is built at first use
 into ``_build/`` beside the package and rebuilt when a source is newer
 than it.
+
+This module is the one launch path. Each ``ops/<k>.py`` declares its
+launchers' C signatures as :class:`Kernel` handles beside their only
+caller, and its public function runs the kernel for CUDA tensors and the
+plain version for CPU tensors (:func:`on_card`). The caller allocates the
+outputs; a launch runs on the current stream of the tensors' device without
+synchronising and raises on a CUDA error. Each public function counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -102,37 +112,52 @@ def load():
         if _LIB is None:
             if _stale():
                 build()
-            lib = ctypes.CDLL(str(LIB_PATH))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.mfk_min_dist_splits.argtypes = [i32] * 6
-            lib.mfk_min_dist_splits.restype = i32
-            lib.mfk_min_dist.argtypes = [
-                ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-                ptr, i32, ptr,
-            ]
-            lib.mfk_min_dist.restype = i32
-            lib.mfk_knn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, ptr]
-            lib.mfk_knn.restype = i32
-            for fn in (lib.mfk_resize_forward, lib.mfk_resize_backward):
-                fn.argtypes = [ptr, ptr, i32, ctypes.c_longlong, i32, i32,
-                               i32, i32, i32, ptr]
-                fn.restype = i32
-            lib.mfk_roi_align.argtypes = [ptr, ptr, i32, ptr, i32, i32, ptr,
-                                          i32, ptr]
-            lib.mfk_roi_align.restype = i32
-            lib.mfk_nms.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
-                                    ctypes.c_float, ptr, ptr, i32, ptr]
-            lib.mfk_nms.restype = i32
-            lib.mfk_instance_boxes.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                               ptr, ptr, i32, ptr]
-            lib.mfk_instance_boxes.restype = i32
-            lib.mfk_error_string.argtypes = [i32]
-            lib.mfk_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = ctypes.CDLL(str(LIB_PATH))
         return _LIB
 
 
-def check(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.mfk_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+class Kernel:
+    """A function of the library: its name and its C parameters' ctypes,
+    the trailing ``int device, void* stream`` of a launcher included.
+
+    Nothing is built or loaded until the first call, which loads the
+    library and sets the function's ``argtypes`` and ``restype``.
+    """
+
+    def __init__(self, name, argtypes, restype=ctypes.c_int):
+        self.name = name
+        self.argtypes = tuple(argtypes)
+        self.restype = restype
+        self._fn = None
+
+    def function(self):
+        """The library's function, its types set."""
+        if self._fn is None:
+            fn = getattr(load(), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = self.restype
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, device, *args):
+        """Launch with ``args``, then ``device``'s index and its current
+        stream; raise if the launcher returns a CUDA error."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = self.function()(*args, device.index, stream)
+        if err != 0:
+            msg = _ERROR_STRING.function()(err).decode()
+            raise RuntimeError(f"{self.name} launch: CUDA error {err} "
+                               f"({msg})")
+
+
+_ERROR_STRING = Kernel("mfk_error_string", [ctypes.c_int], ctypes.c_char_p)
+
+
+def on_card(t, kernel: str) -> bool:
+    """Whether the kernel runs for ``t``: True on ``cuda``, False on
+    ``cpu`` (the plain version runs); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no {kernel} kernel for device {t.device}")
+    return False

@@ -3,10 +3,9 @@ kernel and its plain version.
 
 Replaces no TPU kernel: the JAX package selects the instances on the host.
 The kernel is ``csrc/instance_boxes.cu`` (its header says what bounds it
-and how it is laid out); :func:`instance_boxes` launches it for CUDA
-tensors and runs :func:`instance_boxes_plain` for CPU tensors, and for
-nothing else. ``runtime/pose_estimation.py::PoseEstimationNode.dispatch``
-calls it once a frame to choose the instances it poses.
+and how it is laid out); :func:`instance_boxes_plain` is its plain version.
+``runtime/pose_estimation.py::PoseEstimationNode.dispatch`` calls
+:func:`instance_boxes` once a frame to choose the instances it poses.
 
 Contract, for ``label (H, W)`` int32, ``pcd (H, W, 3)`` float32 and ``ids
 (K,)`` int32 on one device: ``(K, 5)`` int32 ``(y1, x1, y2, x2,
@@ -19,11 +18,16 @@ gives the same bits.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 MAX_IDS = 1024  # ids a launch (the kernel's shared memory); more are split
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_INSTANCE_BOXES = _build.Kernel("mfk_instance_boxes", [
+    _ptr, _ptr, _ptr, _int, _int, _int, _ptr, _ptr, _int, _ptr])
 
 
 def _check_args(label, pcd, ids):
@@ -64,33 +68,23 @@ def instance_boxes_plain(label, pcd, ids):
 
 
 def instance_boxes(label, pcd, ids):
-    """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
-
-    The accumulator and the output are allocated here, and the kernel runs
-    on the current stream without synchronising. Counts its launches in
-    ``instance_boxes.launches``.
-    """
+    """Each id's box and finite count, as the contract above says: one
+    launch, counted in ``instance_boxes.launches``, per ``MAX_IDS`` ids."""
     _check_args(label, pcd, ids)
-    if label.device.type == "cpu":
+    if not _build.on_card(label, "instance_boxes"):
         return instance_boxes_plain(label, pcd, ids)
-    if label.device.type != "cuda":
-        raise ValueError(f"no instance_boxes kernel for device "
-                         f"{label.device}")
     K = ids.shape[0]
     H, W = label.shape
     if K == 0 or H * W == 0:
         return torch.zeros((K, 5), dtype=torch.int32, device=label.device)
     out = torch.empty((K, 5), dtype=torch.int32, device=label.device)
     label, pcd, ids = label.contiguous(), pcd.contiguous(), ids.contiguous()
-    lib = _build.load()
-    stream = torch.cuda.current_stream(label.device).cuda_stream
     for s in range(0, K, MAX_IDS):
         k = min(MAX_IDS, K - s)
         acc = torch.empty(5 * k + 1, dtype=torch.int32, device=label.device)
-        err = lib.mfk_instance_boxes(
-            label.data_ptr(), pcd.data_ptr(), ids[s:].data_ptr(), k, H, W,
-            acc.data_ptr(), out[s:].data_ptr(), label.device.index, stream)
-        _build.check(lib, err, "instance_boxes launch")
+        _INSTANCE_BOXES(label.device, label.data_ptr(), pcd.data_ptr(),
+                        ids[s:].data_ptr(), k, H, W, acc.data_ptr(),
+                        out[s:].data_ptr())
         instance_boxes.launches += 1
     return out
 

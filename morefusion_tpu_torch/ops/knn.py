@@ -6,8 +6,7 @@ has no caller in the JAX package: its ADD-S runs the XLA expansion of
 kernel takes in the port's train step and in ``contrib/icp.py``). The kernel
 is
 ``csrc/knn.cu`` (its header says what bounds it and how it is laid out);
-:func:`nn_indices` launches it for CUDA tensors and runs
-:func:`nn_indices_plain` for CPU tensors, and for nothing else.
+:func:`nn_indices_plain` is its plain version.
 
 Contract, for ``ref (B, R, 3)`` and ``query (B, Q, 3)`` float32, ``R >= 1``:
 ``(B, Q)`` int32, the index into ``ref[b]`` of the nearest reference point
@@ -21,9 +20,15 @@ RMSE read it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_KNN = _build.Kernel("mfk_knn", [_ptr, _ptr, _int, _int, _int, _ptr, _ptr,
+                                 _int, _ptr])
 
 # elements of one (B, chunk, R) distance block of the plain version: at the
 # training shape a whole (B, Q, R) block would take 16 GB
@@ -73,16 +78,10 @@ def nn_indices_plain(ref, query, return_d2=False):
 
 
 def nn_indices(ref, query, return_d2=False):
-    """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
-
-    The output is allocated here and the kernel runs on the current stream
-    without synchronising. Counts its launches in ``nn_indices.launches``.
-    """
+    """Each query's nearest reference point, as the contract above says."""
     _check_args(ref, query)
-    if query.device.type == "cpu":
+    if not _build.on_card(query, "knn"):
         return nn_indices_plain(ref, query, return_d2)
-    if query.device.type != "cuda":
-        raise ValueError(f"no knn kernel for device {query.device}")
     for name, t in (("ref", ref), ("query", query)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -95,12 +94,8 @@ def nn_indices(ref, query, return_d2=False):
     out = torch.empty((B, Q), dtype=torch.int32, device=query.device)
     d2 = (torch.empty((B, Q), dtype=torch.float32, device=query.device)
           if return_d2 else None)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    err = lib.mfk_knn(ref.data_ptr(), query.data_ptr(), B, R, Q,
-                      out.data_ptr(), None if d2 is None else d2.data_ptr(),
-                      query.device.index, stream)
-    _build.check(lib, err, "knn launch")
+    _KNN(query.device, ref.data_ptr(), query.data_ptr(), B, R, Q,
+         out.data_ptr(), None if d2 is None else d2.data_ptr())
     nn_indices.launches += 1
     return (out, d2) if return_d2 else out
 

@@ -2,8 +2,7 @@
 
 Replaces ``morefusion_tpu/ops/min_dist_pallas.py::_kernel``. The kernel is
 ``csrc/min_dist.cu`` (its header says what bounds it and how it is laid
-out); :func:`min_dist_voxels` launches it for CUDA tensors and runs
-:func:`min_dist_voxels_plain` for CPU tensors, and for nothing else.
+out); :func:`min_dist_voxels_plain` is its plain version.
 
 Contract, for points in voxel units ``ip (B, P, 3)``, ``valid (B, P)``,
 ``payload (B, P)`` int32 and a grid ``dims = (X, Y, Z)`` whose voxel
@@ -19,11 +18,19 @@ Contract, for points in voxel units ``ip (B, P, 3)``, ``valid (B, P)``,
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_SPLITS = _build.Kernel("mfk_min_dist_splits", [_int] * 6)
+_MIN_DIST = _build.Kernel("mfk_min_dist", [
+    _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr, _ptr, _ptr,
+    _ptr, _int, _ptr,
+])
 
 # the kernel splits the point axis in at most 65535 parts of at most 2048
 _MAX_POINTS = 65535 * 2048
@@ -51,7 +58,7 @@ def _check_args(ip, valid, payload, dims):
 def _splits(B, P, X, Y, Z, device):
     """Splits of the point axis the kernel takes at these shapes on this
     card: one key (d2 bits << 32 | index) per split and voxel."""
-    splits = _build.load().mfk_min_dist_splits(B, P, X, Y, Z, device)
+    splits = _SPLITS.function()(B, P, X, Y, Z, device)
     if splits < 1:
         raise RuntimeError(f"min_dist: cannot query CUDA device {device}")
     return splits
@@ -96,16 +103,10 @@ def min_dist_voxels_plain(ip, valid, payload, dims, chunk: int = 64):
 
 
 def min_dist_voxels(ip, valid, payload, dims):
-    """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
-
-    Outputs are allocated here and the kernel runs on the current stream
-    without synchronising. Counts its launches in ``min_dist_voxels.launches``.
-    """
+    """Each voxel's nearest valid point, as the contract above says."""
     _check_args(ip, valid, payload, dims)
-    if ip.device.type == "cpu":
+    if not _build.on_card(ip, "min_dist"):
         return min_dist_voxels_plain(ip, valid, payload, dims)
-    if ip.device.type != "cuda":
-        raise ValueError(f"no min_dist kernel for device {ip.device}")
     for name, t in (("ip", ip), ("valid", valid), ("payload", payload)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -120,18 +121,11 @@ def min_dist_voxels(ip, valid, payload, dims):
     d2 = torch.empty((B, V), dtype=torch.float32, device=ip.device)
     arg = torch.empty((B, V), dtype=torch.int32, device=ip.device)
     pay = torch.empty((B, V), dtype=torch.int32, device=ip.device)
-    lib = _build.load()
-    device = ip.device.index
-    splits = _splits(B, P, X, Y, Z, device)
+    splits = _splits(B, P, X, Y, Z, ip.device.index)
     keys = torch.empty((splits, B, V), dtype=torch.int64, device=ip.device)
-    stream = torch.cuda.current_stream(ip.device).cuda_stream
-    err = lib.mfk_min_dist(
-        ip.data_ptr(), valid.data_ptr(), payload.data_ptr(),
-        B, P, X, Y, Z, splits, keys.data_ptr(),
-        d2.data_ptr(), arg.data_ptr(), pay.data_ptr(),
-        device, stream,
-    )
-    _build.check(lib, err, "min_dist launch")
+    _MIN_DIST(ip.device, ip.data_ptr(), valid.data_ptr(), payload.data_ptr(),
+              B, P, X, Y, Z, splits, keys.data_ptr(),
+              d2.data_ptr(), arg.data_ptr(), pay.data_ptr())
     min_dist_voxels.launches += 1
     return d2, arg, pay
 

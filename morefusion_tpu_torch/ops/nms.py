@@ -3,10 +3,9 @@ CUDA kernel and its plain version.
 
 Replaces no TPU kernel: the JAX package has no detector. The kernel is
 ``csrc/nms.cu`` (its header says what bounds it and how it is laid out);
-:func:`nms` launches it for CUDA tensors and runs :func:`nms_plain` for CPU
-tensors, and for nothing else. ``models/maskrcnn.py`` calls it twice a
-frame: the proposals within each pyramid level, the detections within each
-class.
+:func:`nms_plain` is its plain version. ``models/maskrcnn.py`` calls
+:func:`nms` twice a frame: the proposals within each pyramid level, the
+detections within each class.
 
 Contract, for ``boxes (N, 4)`` float32 ``x1, y1, x2, y2``, groups
 ``[(start, count), ...]`` (host integers, at most 32 groups; by default one
@@ -32,6 +31,9 @@ WORD = 64  # boxes a word of the kernel's bitmask
 MAX_GROUPS = 32
 # the scan stages (64 + 1) x words of 8 bytes in 48 KB of shared memory
 MAX_GROUP_SIZE = (48 * 1024 // (8 * (WORD + 1))) * WORD
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_NMS = _build.Kernel("mfk_nms", [_ptr, _ptr, _ptr, _int, _ptr, _ptr, _int,
+                                 ctypes.c_float, _ptr, _ptr, _int, _ptr])
 
 
 def box_area(boxes):
@@ -107,17 +109,11 @@ def nms_plain(boxes, threshold, groups=None, labels=None, valid=None):
 
 
 def nms(boxes, threshold, groups=None, labels=None, valid=None):
-    """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
-
-    The bitmask scratch and the output are allocated here, and the two
-    kernels run on the current stream without synchronising. Counts its
-    calls in ``nms.launches``.
-    """
+    """Whether each box is kept, as the contract above says. The launcher
+    runs two kernels; ``nms.launches`` counts the call once."""
     _check_args(boxes, labels, valid)
-    if boxes.device.type == "cpu":
+    if not _build.on_card(boxes, "nms"):
         return nms_plain(boxes, threshold, groups, labels, valid)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"no nms kernel for device {boxes.device}")
     N = boxes.shape[0]
     groups = _groups(N, groups)
     boxes = boxes.contiguous()
@@ -133,14 +129,10 @@ def nms(boxes, threshold, groups=None, labels=None, valid=None):
     G = len(groups)
     starts = (ctypes.c_int * MAX_GROUPS)(*[a for a, _ in groups])
     counts = (ctypes.c_int * MAX_GROUPS)(*[c for _, c in groups])
-    lib = _build.load()
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = lib.mfk_nms(
-        boxes.data_ptr(), None if labels is None else labels.data_ptr(),
-        None if valid is None else valid.data_ptr(), G, starts, counts,
-        words, threshold, mask.data_ptr(), keep.data_ptr(),
-        boxes.device.index, stream)
-    _build.check(lib, err, "nms launch")
+    _NMS(boxes.device, boxes.data_ptr(),
+         None if labels is None else labels.data_ptr(),
+         None if valid is None else valid.data_ptr(), G, starts, counts,
+         words, threshold, mask.data_ptr(), keep.data_ptr())
     nms.launches += 1
     return keep.view(torch.bool)
 

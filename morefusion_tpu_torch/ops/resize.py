@@ -3,11 +3,10 @@ kernel and its plain version.
 
 Replaces no TPU kernel: the JAX package resizes with ``jax.image.resize``,
 which XLA lowers by itself. The kernel is ``csrc/resize.cu`` (its header
-says what bounds it and how it is laid out); :func:`resize_bilinear`
-launches it for CUDA tensors, forward and backward, and runs
-:func:`resize_bilinear_plain` (``F.interpolate``) for CPU tensors, and for
-nothing else. PSPNet's pyramid and x2 stages and the UNet segmenter's x2
-stages call it.
+says what bounds it and how it is laid out), forward and backward;
+:func:`resize_bilinear_plain` (``F.interpolate``) is its plain version.
+PSPNet's pyramid and x2 stages and the UNet segmenter's x2 stages call
+:func:`resize_bilinear`.
 
 Contract, for ``x (N, C, H, W)`` float32 or bfloat16, contiguous, and an
 output size ``h >= H``, ``w >= W``: ``F.interpolate(x, (h, w),
@@ -28,6 +27,8 @@ on those ranges and weights.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -37,6 +38,13 @@ from . import _build
 
 # storage types the kernel takes, as its launchers number them
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_ptr, _ptr, _int, ctypes.c_longlong, _int, _int, _int, _int,
+             _int, _ptr]
+_FORWARD = _build.Kernel("mfk_resize_forward", _ARGTYPES)
+_BACKWARD = _build.Kernel("mfk_resize_backward", _ARGTYPES)
+_KERNELS = {k.name: k for k in (_FORWARD, _BACKWARD)}
 
 
 def resize_bilinear_plain(x, h, w):
@@ -128,13 +136,9 @@ def _check_kernel_args(x, h, w):
 
 
 def _launch(name, src, dst, in_hw, out_hw):
-    lib = _build.load()
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = getattr(lib, name)(
-        src.data_ptr(), dst.data_ptr(), _KERNEL_DTYPES[src.dtype],
-        src.shape[0] * src.shape[1], *in_hw, *out_hw, src.device.index,
-        stream)
-    _build.check(lib, err, f"{name} launch")
+    _KERNELS[name](src.device, src.data_ptr(), dst.data_ptr(),
+                   _KERNEL_DTYPES[src.dtype], src.shape[0] * src.shape[1],
+                   *in_hw, *out_hw)
     resize_bilinear.launches += 1
 
 
@@ -158,20 +162,15 @@ class _Resize(torch.autograd.Function):
 
 
 def resize_bilinear(x, h, w):
-    """``F.interpolate(x, (h, w), bilinear, align_corners=False)``: the CUDA
-    kernel for CUDA tensors, the plain version on CPU.
+    """``F.interpolate(x, (h, w), bilinear, align_corners=False)``.
 
-    Outputs are allocated here and the kernels run on the current stream
-    without synchronising. Counts its launches (forward and backward) in
-    ``resize_bilinear.launches``; under a profiler, every call in the
-    counter ``resize.calls`` and those the kernel takes in
-    ``resize.kernel``.
+    ``resize_bilinear.launches`` counts the forward's and the backward's
+    launches; under a profiler, the counter ``resize.calls`` counts every
+    call and ``resize.kernel`` those the kernel takes.
     """
     profiling.count("resize.calls")
-    if x.device.type == "cpu":
+    if not _build.on_card(x, "resize"):
         return resize_bilinear_plain(x, h, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no resize kernel for device {x.device}")
     _check_kernel_args(x, h, w)
     profiling.count("resize.kernel")
     return _Resize.apply(x, h, w)

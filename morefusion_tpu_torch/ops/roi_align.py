@@ -3,10 +3,9 @@ levels P2-P5: the CUDA kernel and its plain version.
 
 Replaces no TPU kernel: the JAX package has no detector. The kernel is
 ``csrc/roi_align.cu`` (its header says what bounds it and how it is laid
-out); :func:`roi_align` launches it for CUDA tensors and runs
-:func:`roi_align_plain` for CPU tensors, and for nothing else.
-``models/maskrcnn.py`` calls it twice a frame: 7 x 7 for the box head over
-the proposals, 14 x 14 for the mask head over the detections.
+out); :func:`roi_align_plain` is its plain version. ``models/maskrcnn.py``
+calls :func:`roi_align` twice a frame: 7 x 7 for the box head over the
+proposals, 14 x 14 for the mask head over the detections.
 
 Contract, for ``features``, the four levels P2-P5 as ``(1, C, H_l, W_l)``
 float32 (strides 4, 8, 16, 32), and ``rois (R, 4)`` float32 ``x1, y1, x2,
@@ -29,6 +28,9 @@ SAMPLING = 2
 STRIDES = (4, 8, 16, 32)  # P2-P5
 CANONICAL_SIZE = 224.0
 CANONICAL_LEVEL = 4
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_ROI_ALIGN = _build.Kernel("mfk_roi_align", [_ptr, _ptr, _int, _ptr, _int,
+                                             _int, _ptr, _int, _ptr])
 
 
 def roi_levels(rois):
@@ -132,16 +134,10 @@ def _check_args(features, rois):
 
 
 def roi_align(features, rois, output_size):
-    """Launch the CUDA kernel for CUDA tensors; the plain version on CPU.
-
-    The output is allocated here and the kernel runs on the current stream
-    without synchronising. Counts its launches in ``roi_align.launches``.
-    """
+    """RoIAlign of ``rois`` over P2-P5, as the contract above says."""
     _check_args(features, rois)
-    if rois.device.type == "cpu":
+    if not _build.on_card(rois, "roi_align"):
         return roi_align_plain(features, rois, output_size)
-    if rois.device.type != "cuda":
-        raise ValueError(f"no roi_align kernel for device {rois.device}")
     P = int(output_size)
     C = features[0].shape[1]
     features = [f.contiguous() for f in features]
@@ -151,11 +147,8 @@ def roi_align(features, rois, output_size):
     ptrs = (ctypes.c_void_p * len(STRIDES))(*[f.data_ptr() for f in features])
     hw = (ctypes.c_int * (2 * len(STRIDES)))(
         *[d for f in features for d in f.shape[-2:]])
-    lib = _build.load()
-    stream = torch.cuda.current_stream(rois.device).cuda_stream
-    err = lib.mfk_roi_align(ptrs, hw, C, rois.data_ptr(), rois.shape[0], P,
-                            out.data_ptr(), rois.device.index, stream)
-    _build.check(lib, err, "roi_align launch")
+    _ROI_ALIGN(rois.device, ptrs, hw, C, rois.data_ptr(), rois.shape[0], P,
+               out.data_ptr())
     roi_align.launches += 1
     return out
 
